@@ -1,0 +1,95 @@
+"""Carry a factorization made by the JAX package into the port.
+
+``from_jax_factorization`` takes the JAX package's stored factor as numpy
+arrays — the fields of ``TridiagFactor``, ``PeriodicTridiagFactor``,
+``PentaFactor`` or ``PeriodicPentaFactor`` (a NamedTuple of arrays, or a
+mapping of field name to array, nested for the periodic factors), or the
+batch-mode dict of diagonals — plus its ``SolveMeta`` fields, and returns
+the port's ``Factorization`` of the same operator.  It reads plain numpy
+and mappings only; the caller converts from JAX.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from .core.penta import PentaFactor, PeriodicPentaFactor
+from .core.tridiag import PeriodicTridiagFactor, TridiagFactor
+from .kernels.ops import canonical_storage_dtype
+from .solver.functional import Factorization, SolveMeta
+from .solver.reference import _expand_if_scalarized
+
+# JAX backend -> the port's backend holding the same stored layout
+_BACKENDS = {"pallas": "cuda", "reference": "reference", "cuda": "cuda"}
+
+
+def _fields(obj) -> dict:
+    if isinstance(obj, Mapping):
+        return dict(obj)
+    if hasattr(obj, "_asdict"):
+        return obj._asdict()
+    raise TypeError(f"expected a NamedTuple or mapping of arrays, got "
+                    f"{type(obj).__name__}")
+
+
+def _factor(cls, fields: dict, tensor):
+    return cls(**{k: tensor(v) for k, v in fields.items()})
+
+
+def from_jax_factorization(stored_np, meta_dict: Mapping, *, device,
+                           diagonals=()) -> Factorization:
+    """The port's ``Factorization`` of a JAX-made stored factor.
+
+    ``meta_dict`` holds ``SolveMeta``'s fields (``bandwidth``, ``n``,
+    ``mode``, ``periodic``, ``backend``, ``options``).  A ``pallas``
+    factorization becomes a ``cuda`` one (the same stored layout; its
+    ``storage_dtype`` carries over, its TPU tiling does not); a batch-mode
+    one becomes a ``reference`` one.
+    ``diagonals`` are the spec's (N,) diagonals, needed only for their
+    gradients."""
+    device = torch.device(device)
+
+    def tensor(x):
+        return torch.tensor(np.asarray(x), device=device)
+
+    bandwidth, mode = int(meta_dict["bandwidth"]), meta_dict["mode"]
+    periodic, n = bool(meta_dict["periodic"]), int(meta_dict["n"])
+    try:
+        backend = _BACKENDS[meta_dict["backend"]]
+    except KeyError:
+        raise ValueError(f"no port backend holds the stored layout of JAX "
+                         f"backend {meta_dict['backend']!r}") from None
+    if mode == "batch":
+        # per-system copies: the reference backend serves them until the
+        # batch slice brings the cuda kernel
+        backend = "reference"
+    jax_opts = dict(meta_dict.get("options", ()))
+
+    fields = _fields(stored_np)
+    if mode == "batch":
+        stored = {k: tensor(v) for k, v in fields.items()}
+    else:
+        base, wrapper = ((TridiagFactor, PeriodicTridiagFactor)
+                         if bandwidth == 3 else
+                         (PentaFactor, PeriodicPentaFactor))
+        if periodic:
+            inner = _factor(base, _fields(fields.pop("factor")), tensor)
+            stored = wrapper(factor=inner,
+                             **{k: tensor(v) for k, v in fields.items()})
+        else:
+            stored = _factor(base, fields, tensor)
+        if backend == "cuda":
+            stored = _expand_if_scalarized(bandwidth, periodic, n, stored)
+
+    if backend == "cuda":
+        options = {"storage_dtype": canonical_storage_dtype(
+                       jax_opts.get("storage_dtype"))}
+    else:
+        options = {"method": jax_opts.get("method", "scan")}
+    meta = SolveMeta(bandwidth=bandwidth, n=n, mode=mode, periodic=periodic,
+                     backend=backend, options=tuple(sorted(options.items())))
+    return Factorization(diagonals=tuple(tensor(d) for d in diagonals),
+                         stored=stored, meta=meta)

@@ -1,0 +1,178 @@
+"""The sweep descriptions behind the shared-LHS solve kernel — as data.
+
+Every shared-LHS banded solve (tridiagonal or pentadiagonal, constant or
+uniform storage, forward or transposed) is one two-pass sweep in which
+each pass is a short linear recurrence
+
+    out_i = (in_i - sum_j coeff_j(i) * carry_j) * scale(i)
+
+with a carry of order 1 (tridiagonal) or 2 (pentadiagonal), ascending for
+forward substitution and descending for back substitution.  Only which
+rows of the stacked factor feed which carry lag, and which pass holds the
+stored inverse diagonal as its scale, differ between variants.
+
+  * ``PassSpec`` — one pass: ``(coefficient row, carry lag)`` terms in
+    subtraction order plus an optional scale row.
+  * ``_PASS_TABLE`` — the passes of every shared variant, keyed by
+    ``(bandwidth, uniform, transposed)``.  The CUDA kernel
+    (``csrc/shared_sweep.cu``) and its plain version (``ops``) both take
+    their arguments from this table; no variant has code of its own.
+  * ``SweepSpec`` / ``find_spec`` — one variant, with the byte accounting
+    (``traffic_words`` / ``traffic_bytes``) derived from its shape.
+
+The transposed variants solve A^T x = rhs from the SAME stored factor:
+A = L·U means A^T = U^T·L^T, so they read shifted rows of the forward
+factor (``c_hat_{i-1}``, ``a_{i+1}``, …) that ``ops`` shifts on the host.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+# Sentinel coefficient source: the uniform-mode eps value, which rides in a
+# 1-element device tensor (never a host float, so no device sync).
+EPS_PARAM = "eps"
+
+
+@dataclasses.dataclass(frozen=True)
+class PassSpec:
+    """One pass of a two-pass sweep.
+
+    ``terms`` is a tuple of ``(coeff_src, carry_lag)`` pairs applied in
+    SUBTRACTION ORDER.  ``coeff_src`` is a row index into the stacked LHS
+    or ``EPS_PARAM``.  ``scale`` is the row that multiplies the bracketed
+    result (the stored inverse diagonal); ``None`` means unscaled.
+    """
+
+    terms: tuple
+    scale: object = None
+
+
+# (bandwidth, uniform, transposed) -> (forward pass, backward pass).
+#
+# Stacked LHS row conventions (``ops.stack_*_lhs``):
+#   tridiag          [a, inv_denom, c_hat]
+#   tridiag^T        [c_hat_{i-1}, inv_denom, a_{i+1}]
+#   penta            [eps, beta, inv_alpha, gamma, delta]
+#   penta uniform    [beta, inv_alpha, gamma, delta]      (+ eps param)
+#   penta^T          [delta_{i-2}, gamma_{i-1}, inv_alpha, beta_{i+1},
+#                     eps_{i+2}]
+#   penta^T uniform  [delta_{i-2}, gamma_{i-1}, inv_alpha, beta_{i+1}]
+#                                                         (+ eps param)
+_PASS_TABLE = {
+    (3, False, False): (PassSpec(((0, 1),), 1), PassSpec(((2, 1),), None)),
+    (3, False, True): (PassSpec(((0, 1),), None), PassSpec(((2, 1),), 1)),
+    (5, False, False): (PassSpec(((0, 2), (1, 1)), 2),
+                        PassSpec(((3, 1), (4, 2)), None)),
+    (5, False, True): (PassSpec(((0, 2), (1, 1)), None),
+                       PassSpec(((3, 1), (4, 2)), 2)),
+    (5, True, False): (PassSpec(((EPS_PARAM, 2), (0, 1)), 1),
+                       PassSpec(((2, 1), (3, 2)), None)),
+    (5, True, True): (PassSpec(((0, 2), (1, 1)), None),
+                      PassSpec(((3, 1), (EPS_PARAM, 2)), 2)),
+}
+
+
+def _itemsize(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def compute_dtype(dtype) -> torch.dtype:
+    """Accumulation dtype of a sweep over operands stored at ``dtype``:
+    at least fp32 (bf16 storage computes and returns fp32)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepSpec:
+    """One shared-LHS solve variant."""
+
+    bandwidth: int            # 3 | 5
+    transposed: bool = False  # solve A^T x = rhs from the same factor
+    uniform: bool = False     # penta only: eps as a 1-element operand
+
+    def __post_init__(self):
+        if self.bandwidth not in (3, 5):
+            raise ValueError(f"bandwidth must be 3 or 5, got {self.bandwidth}")
+        if self.uniform and self.bandwidth != 5:
+            raise ValueError("uniform is a penta concept (cuPentUniformBatch)")
+
+    @property
+    def order(self) -> int:
+        """Carry order of each sweep pass."""
+        return 1 if self.bandwidth == 3 else 2
+
+    @property
+    def lhs_rows(self) -> int:
+        """Rows of the stacked shared LHS."""
+        if self.bandwidth == 3:
+            return 3
+        return 4 if self.uniform else 5
+
+    @property
+    def mode(self) -> str:
+        return "uniform" if self.uniform else "constant"
+
+    @property
+    def name(self) -> str:
+        base = "thomas" if self.bandwidth == 3 else "penta"
+        return f"{base}_{self.mode}" + ("_t" if self.transposed else "")
+
+    def passes(self) -> tuple:
+        """(forward PassSpec, backward PassSpec) for this variant."""
+        return _PASS_TABLE[(self.bandwidth, self.uniform, self.transposed)]
+
+    # -- accounting: the least traffic the function needs ---------------------
+
+    def storage_words(self, n: int, m: int) -> int:
+        """Words read from stored operands: the RHS once, each LHS row
+        once, and the eps parameter."""
+        return n * m + self.lhs_rows * n + (1 if self.uniform else 0)
+
+    def compute_words(self, n: int, m: int) -> int:
+        """Words written at the compute dtype: x once."""
+        return n * m
+
+    def traffic_words(self, n: int, m: int) -> int:
+        """The paper's floor for one solve, ``2NM + kN`` words: each
+        input read once and x written once."""
+        return self.storage_words(n, m) + self.compute_words(n, m)
+
+    def traffic_bytes(self, n: int, m: int, dtype=torch.float32,
+                      storage_dtype=None) -> int:
+        """``traffic_words`` in bytes: stored operands at ``storage_dtype``
+        (default ``dtype``), x at the compute dtype."""
+        sdt = storage_dtype or dtype
+        return (self.storage_words(n, m) * _itemsize(sdt)
+                + self.compute_words(n, m) * _itemsize(compute_dtype(sdt)))
+
+
+REGISTRY: dict = {
+    s.name: s for s in (SweepSpec(bw, transposed=t, uniform=u)
+                        for bw in (3, 5) for u in (False, True)
+                        for t in (False, True) if not (u and bw == 3))
+}
+
+
+def find_spec(bandwidth: int, mode: str, *,
+              transposed: bool = False) -> SweepSpec:
+    """The spec serving (bandwidth, storage mode); tridiagonal ``uniform``
+    shares the constant variant (it has no eps row to drop)."""
+    if bandwidth not in (3, 5):
+        raise ValueError(f"no sweep for bandwidth={bandwidth!r}; "
+                         "3 (tridiagonal) and 5 (pentadiagonal) exist")
+    if mode == "batch":
+        raise NotImplementedError(
+            "per-system LHS (mode='batch') kernels arrive with the batch "
+            "slice; only the shared-LHS sweep is ported")
+    if mode not in ("constant", "uniform"):
+        raise ValueError(f"unknown storage mode {mode!r}")
+    return SweepSpec(bandwidth, transposed=transposed,
+                     uniform=(mode == "uniform" and bandwidth == 5))
+
+
+def pass_table() -> dict:
+    """A copy of ``_PASS_TABLE`` (mutating it cannot corrupt the sweep)."""
+    return dict(_PASS_TABLE)

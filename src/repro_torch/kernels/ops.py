@@ -1,0 +1,263 @@
+"""Entry points of the shared-LHS sweep kernel.
+
+Counterpart of the shared-LHS half of ``repro.kernels.ops``:
+
+  * ``stack_tridiag_lhs`` / ``stack_penta_lhs`` stack the stored factor
+    into the kernel's (rows, N) LHS — including the host-side row SHIFTS
+    that turn the forward factor into the transposed sweep's rows
+    (A^T = U^T·L^T needs c_hat_{i-1}, a_{i+1}, …, never a second factor);
+  * ``thomas_constant`` / ``penta_constant`` solve one shared factor over
+    an interleaved (N, M) batch;
+  * ``shared_sweep`` dispatches on where the tensors lie: a CUDA tensor
+    goes to the hand-written kernel (``csrc/shared_sweep.cu``) or raises,
+    a CPU tensor goes to ``shared_sweep_plain``, the same arithmetic in
+    plain torch.  There is no fallback from one to the other.
+
+``LAUNCHES`` counts the kernel's launches by sweep variant; it is bumped
+where the kernel launches and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core.tridiag import _shift_down, _shift_up
+from . import build
+from .engine import EPS_PARAM, SweepSpec, compute_dtype, find_spec
+
+#: Kernel launches by spec name (``thomas_constant``, ``penta_uniform_t``…).
+LAUNCHES: dict = {}
+
+DEFAULT_THREADS = 256
+DEFAULT_CHUNK_N = 512
+_SMEM_LIMIT = 48 * 1024   # bytes of shared memory a block gets by default
+_DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+_STORAGE_ALIASES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+                    "float32": torch.float32, "float64": torch.float64}
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def canonical_storage_dtype(storage_dtype):
+    """``None`` (store at the operand dtype), a torch dtype, or a name
+    (``"bf16"``) -> a floating torch dtype the kernel stores."""
+    if storage_dtype is None:
+        return None
+    dt = _STORAGE_ALIASES.get(storage_dtype, storage_dtype)
+    if dt not in _DTYPE_CODES:
+        raise ValueError(f"storage_dtype must be float32, float64 or bf16, "
+                         f"got {storage_dtype!r}")
+    return dt
+
+
+def stack_tridiag_lhs(f, *, transposed: bool = False) -> torch.Tensor:
+    """(3, N) kernel LHS: [a, inv_denom, c_hat], or the transposed rows
+    [c_hat_{i-1}, inv_denom, a_{i+1}] — same stored vectors, shifted."""
+    if transposed:
+        return torch.stack([_shift_down(f.c_hat, 1), f.inv_denom,
+                            _shift_up(f.a, 1)])
+    return torch.stack([f.a, f.inv_denom, f.c_hat])
+
+
+def stack_penta_lhs(f, uniform: bool = False, *,
+                    transposed: bool = False) -> torch.Tensor:
+    """(5, N) kernel LHS [eps, beta, inv_alpha, gamma, delta] ((4, N) when
+    ``uniform`` drops the eps row); transposed: [delta_{i-2}, gamma_{i-1},
+    inv_alpha, beta_{i+1}(, eps_{i+2})]."""
+    eps = torch.broadcast_to(f.eps, f.beta.shape)
+    if transposed:
+        rows = [_shift_down(f.delta, 2), _shift_down(f.gamma, 1),
+                f.inv_alpha, _shift_up(f.beta, 1)]
+        if not uniform:
+            rows.append(_shift_up(eps, 2))
+        return torch.stack(rows)
+    if uniform:
+        return torch.stack([f.beta, f.inv_alpha, f.gamma, f.delta])
+    return torch.stack([eps, f.beta, f.inv_alpha, f.gamma, f.delta])
+
+
+def _uniform_eps_param(f, dtype) -> torch.Tensor:
+    """The all-equal eps value as a 1-element DEVICE tensor (no ``.item()``,
+    no host sync).  Index 2 because the factor forces eps[0] = eps[1] = 0;
+    below N = 3 eps only ever multiplies zero carries, and the last entry
+    stands in (as JAX's clamped index does)."""
+    eps = torch.broadcast_to(f.eps, f.beta.shape)
+    return eps[min(2, eps.shape[0] - 1)].reshape(1).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# The sweep: kernel, plain version, dispatch
+# ---------------------------------------------------------------------------
+
+def shared_sweep_plain(spec: SweepSpec, lhs: torch.Tensor, rhs: torch.Tensor,
+                       eps: torch.Tensor | None = None) -> torch.Tensor:
+    """The kernel's function in plain torch: the same passes, the same
+    subtraction order, one row of the batch at a time.  Operands stored
+    at bf16 compute (and return) fp32, as the kernel does."""
+    cdt = compute_dtype(rhs.dtype)
+    coef = lhs.to(cdt)
+    eps_c = None if eps is None else eps.to(cdt)[0]
+    n, m = rhs.shape
+    out = torch.empty((n, m), dtype=cdt, device=rhs.device)
+    zeros = torch.zeros((m,), dtype=cdt, device=rhs.device)
+
+    def at(src, i):
+        return eps_c if src == EPS_PARAM else coef[src, i]
+
+    def run(pspec, source, rows):
+        carries = (zeros,) * spec.order
+        for i in rows:
+            acc = source[i].to(cdt)
+            for src, lag in pspec.terms:
+                acc = acc - at(src, i) * carries[lag - 1]
+            if pspec.scale is not None:
+                acc = acc * at(pspec.scale, i)
+            out[i] = acc
+            carries = (acc,) + carries[:spec.order - 1]
+
+    fwd, bwd = spec.passes()
+    run(fwd, rhs, range(n))
+    run(bwd, out, range(n - 1, -1, -1))
+    return out
+
+
+def _pass_desc(pspec, rows: int) -> list:
+    """[src0, lag0, src1, lag1, scale] for the kernel; the eps sentinel
+    becomes the staged row after the factor rows."""
+    words = []
+    for t in range(2):
+        if t < len(pspec.terms):
+            src, lag = pspec.terms[t]
+            words += [rows if src == EPS_PARAM else src, lag]
+        else:
+            words += [-1, 1]
+    return words + [-1 if pspec.scale is None else pspec.scale]
+
+
+def sweep_desc(spec: SweepSpec) -> list:
+    """The 11 ints the kernel reads: the order, then each pass."""
+    fwd, bwd = spec.passes()
+    return ([spec.order] + _pass_desc(fwd, spec.lhs_rows)
+            + _pass_desc(bwd, spec.lhs_rows))
+
+
+def _library():
+    lib = build.load("shared_sweep")
+    fn = lib.shared_sweep
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
+    return fn
+
+
+def shared_sweep_cuda(spec: SweepSpec, lhs: torch.Tensor, rhs: torch.Tensor,
+                      eps: torch.Tensor | None = None, *,
+                      threads: int | None = None,
+                      chunk_n: int | None = None) -> torch.Tensor:
+    """Launch ``csrc/shared_sweep.cu`` on the current stream.  Validates
+    device, dtype, shape and contiguity and raises on what the kernel
+    does not take; raises when the launch reports a CUDA error."""
+    threads = DEFAULT_THREADS if threads is None else int(threads)
+    chunk_n = DEFAULT_CHUNK_N if chunk_n is None else int(chunk_n)
+    n, m = rhs.shape
+    operands = [lhs, rhs] + ([] if eps is None else [eps])
+    if any(not t.is_cuda or t.device != rhs.device for t in operands):
+        raise ValueError("shared_sweep: every operand must lie on one CUDA "
+                         "device")
+    if any(t.dtype != rhs.dtype for t in operands):
+        raise TypeError("shared_sweep: lhs, rhs and eps must share a dtype")
+    if rhs.dtype not in _DTYPE_CODES:
+        raise TypeError(f"shared_sweep: unsupported dtype {rhs.dtype}")
+    if lhs.shape != (spec.lhs_rows, n) or (eps is None) != (not spec.uniform):
+        raise ValueError(f"shared_sweep: {spec.name} takes lhs "
+                         f"({spec.lhs_rows}, {n}) and "
+                         f"{'an' if spec.uniform else 'no'} eps operand")
+    if eps is not None and eps.numel() != 1:
+        raise ValueError("shared_sweep: eps must hold one element")
+    if not all(t.is_contiguous() for t in operands):
+        raise ValueError("shared_sweep: operands must be contiguous")
+    if not (0 < threads <= 1024 and threads % 32 == 0):
+        raise ValueError(f"shared_sweep: threads={threads} must be a "
+                         "multiple of 32 in (0, 1024]")
+    cdt = compute_dtype(rhs.dtype)
+    stage_rows = spec.lhs_rows + (eps is not None)
+    smem = stage_rows * chunk_n * torch.empty((), dtype=cdt).element_size()
+    if chunk_n <= 0 or smem > _SMEM_LIMIT:
+        raise ValueError(f"shared_sweep: chunk_n={chunk_n} stages {smem} "
+                         f"bytes of factor; at most {_SMEM_LIMIT} fit")
+    out = torch.empty((n, m), dtype=cdt, device=rhs.device)
+    if n == 0 or m == 0:
+        return out
+    fn = _library()
+    desc = (ctypes.c_int * 11)(*sweep_desc(spec))
+    with torch.cuda.device(rhs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(_DTYPE_CODES[rhs.dtype], lhs.data_ptr(), spec.lhs_rows,
+                rhs.data_ptr(), out.data_ptr(),
+                None if eps is None else eps.data_ptr(), n, m, desc,
+                threads, chunk_n, stream)
+    if rc != 0:
+        raise RuntimeError(f"shared_sweep launch failed: CUDA error {rc}")
+    LAUNCHES[spec.name] = LAUNCHES.get(spec.name, 0) + 1
+    return out
+
+
+def shared_sweep(spec: SweepSpec, lhs: torch.Tensor, rhs: torch.Tensor,
+                 eps: torch.Tensor | None = None) -> torch.Tensor:
+    """The sweep on the kernel for CUDA tensors, on the plain version for
+    CPU tensors; any other device raises."""
+    if lhs.dtype != rhs.dtype:
+        raise TypeError(f"shared_sweep: factor dtype {lhs.dtype} and rhs "
+                        f"dtype {rhs.dtype} differ")
+    if rhs.is_cuda:
+        return shared_sweep_cuda(spec, lhs, rhs, eps)
+    if rhs.device.type != "cpu":
+        raise ValueError(f"shared_sweep: no kernel for device {rhs.device}")
+    return shared_sweep_plain(spec, lhs, rhs, eps)
+
+
+# ---------------------------------------------------------------------------
+# Solver-facing entry points
+# ---------------------------------------------------------------------------
+
+def _prepare(lhs, rhs, storage_dtype):
+    sdt = canonical_storage_dtype(storage_dtype)
+    if sdt is not None:
+        lhs, rhs = lhs.to(sdt), rhs.to(sdt)
+    return lhs.contiguous(), rhs.contiguous()
+
+
+def thomas_constant(f, d: torch.Tensor, *, transposed: bool = False,
+                    storage_dtype=None) -> torch.Tensor:
+    """Constant-LHS batched Thomas solve (cuThomasConstantBatch). d: (N, M).
+
+    ``transposed=True`` solves A^T x = d from the SAME stored factor.
+    ``storage_dtype="bf16"`` stores the factor and RHS at bf16 (fp32
+    accumulation; the solve returns fp32)."""
+    spec = find_spec(3, "constant", transposed=transposed)
+    lhs, d = _prepare(stack_tridiag_lhs(f, transposed=transposed), d,
+                      storage_dtype)
+    return shared_sweep(spec, lhs, d)
+
+
+def penta_constant(f, rhs: torch.Tensor, *, uniform: bool = False,
+                   transposed: bool = False,
+                   storage_dtype=None) -> torch.Tensor:
+    """Constant-LHS batched penta solve (cuPentConstantBatch, or
+    cuPentUniformBatch when ``uniform``: eps rides as a 1-element tensor).
+    ``transposed=True`` solves A^T x = rhs from the SAME stored factor."""
+    spec = find_spec(5, "uniform" if uniform else "constant",
+                     transposed=transposed)
+    lhs, rhs = _prepare(
+        stack_penta_lhs(f, uniform=uniform, transposed=transposed), rhs,
+        storage_dtype)
+    eps = _uniform_eps_param(f, lhs.dtype) if uniform else None
+    return shared_sweep(spec, lhs, rhs, eps)

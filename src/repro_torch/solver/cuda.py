@@ -1,0 +1,133 @@
+"""``cuda`` backend: the hand-written Hopper sweep kernel.
+
+Counterpart of ``repro.solver.pallas``.  One thread per system walks all N
+rows of the interleaved (N, M) batch out of device memory, with the
+shared factor staged through shared memory (``kernels/csrc/
+shared_sweep.cu``), so there is no VMEM wall and no tuner: the backend
+serves every constant/uniform system at any N.  On CPU tensors the same
+calls run the kernel's plain version (``kernels.ops``).
+
+Periodic boundaries: the kernel solves the truncated band; the rank-1
+Sherman-Morrison (tridiag) / rank-4 Woodbury (penta) corner corrections
+are plain torch around it — a few O(M) dots, the paper's 2-kernel
+pipeline.  The adjoint runs the kernel's transposed variants on the SAME
+stored factor and transposes the corners from the stored ``zt``/``Zt``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core import penta as _penta
+from ..core import tridiag as _tridiag
+from ..kernels import ops as _kops
+from .registry import register_backend, register_pure_backend
+from .system import BandedSystem
+
+_BATCH_MESSAGE = ("the cuda backend has no per-system LHS (mode='batch') "
+                  "kernel yet: it arrives with the batch slice (ROADMAP "
+                  "Queue 1 item 5); use backend='reference' or 'auto'")
+
+
+def build_stored(system: BandedSystem):
+    """Factor once into the kernel-facing stored factor: the reference
+    factors, with uniform mode kept full-vector (the kernel reads a
+    stacked LHS)."""
+    from .reference import build_stored as _ref_build
+    return _ref_build(system, scalarize_uniform=False)
+
+
+def _sweep(bandwidth: int, uniform: bool, factor, rhs, transposed: bool,
+           kw: dict) -> torch.Tensor:
+    if bandwidth == 3:
+        return _kops.thomas_constant(factor, rhs, transposed=transposed, **kw)
+    return _kops.penta_constant(factor, rhs, uniform=uniform,
+                                transposed=transposed, **kw)
+
+
+def solve_stored(bandwidth: int, mode: str, periodic: bool, stored,
+                 rhs: torch.Tensor, *, storage_dtype=None) -> torch.Tensor:
+    """A x = rhs through the kernel, rhs (N,) or (N, M)."""
+    if mode == "batch":
+        raise NotImplementedError(_BATCH_MESSAGE)
+    squeeze = rhs.ndim == 1
+    if squeeze:
+        rhs = rhs[:, None]
+    kw = dict(storage_dtype=storage_dtype)
+    uniform = mode == "uniform"
+    if not periodic:
+        x = _sweep(bandwidth, uniform, stored, rhs, False, kw)
+    elif bandwidth == 3:
+        pf = stored
+        y = _sweep(3, uniform, pf.factor, rhs, False, kw)
+        # rank-1 Sherman-Morrison corner correction (paper Eq. 15)
+        v_dot_y = y[0] + pf.v_last * y[-1]
+        x = y - (v_dot_y * pf.inv_denom_sm) * pf.z[:, None]
+    else:
+        pf = stored
+        y = _sweep(5, uniform, pf.factor, rhs, False, kw)
+        # rank-4 Woodbury corner correction: (4, M) dots and an (N,4)·(4,M)
+        w = pf.Minv @ _penta._vty(pf.vcoef, y)
+        x = y - pf.Z @ w
+    return x[:, 0] if squeeze else x
+
+
+def transpose_solve_stored(bandwidth: int, mode: str, periodic: bool, stored,
+                           rhs: torch.Tensor, *,
+                           storage_dtype=None) -> torch.Tensor:
+    """A^T x = rhs through the kernel's transposed variants, from the SAME
+    stored factor; periodic corners transpose from the stored aux."""
+    if mode == "batch":
+        raise NotImplementedError(_BATCH_MESSAGE)
+    squeeze = rhs.ndim == 1
+    if squeeze:
+        rhs = rhs[:, None]
+    kw = dict(storage_dtype=storage_dtype)
+    uniform = mode == "uniform"
+    if not periodic:
+        x = _sweep(bandwidth, uniform, stored, rhs, True, kw)
+    else:
+        y = _sweep(bandwidth, uniform, stored.factor, rhs, True, kw)
+        core = _tridiag if bandwidth == 3 else _penta
+        x = core.periodic_corner_correction_t(stored, y)
+    return x[:, 0] if squeeze else x
+
+
+# -- the pure-function contract (repro_torch.solver.functional) --------------
+
+def _pure_build(system: BandedSystem, *, storage_dtype=None):
+    if system.mode == "batch":
+        raise NotImplementedError(_BATCH_MESSAGE)
+    sdt = _kops.canonical_storage_dtype(storage_dtype)
+    return build_stored(system), {"storage_dtype": sdt}
+
+
+def _pure_solve(meta, stored, rhs):
+    return solve_stored(meta.bandwidth, meta.mode, meta.periodic, stored, rhs,
+                        storage_dtype=meta.opt("storage_dtype"))
+
+
+def _pure_transpose(meta, stored, rhs):
+    return transpose_solve_stored(meta.bandwidth, meta.mode, meta.periodic,
+                                  stored, rhs,
+                                  storage_dtype=meta.opt("storage_dtype"))
+
+
+register_pure_backend("cuda", build=_pure_build, solve=_pure_solve,
+                      transpose_solve=_pure_transpose)
+
+
+@register_backend("cuda")
+class CudaBackend:
+    """The sweep kernel behind ``plan``: holds a ``Factorization`` and routes
+    ``solve`` through the differentiable entry point."""
+
+    def __init__(self, system: BandedSystem, **opts):
+        from .functional import factorize
+        self.system = system
+        self.fact = factorize(system, backend="cuda", **opts)
+        self.stored = self.fact.stored
+
+    def solve(self, rhs: torch.Tensor) -> torch.Tensor:
+        from .autodiff import solve as _solve
+        return _solve(self.fact, rhs)

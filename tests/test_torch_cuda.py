@@ -1,0 +1,130 @@
+"""The hand-written CUDA kernel on the card, against its plain version.
+
+Every test here is marked ``cuda`` and needs a CUDA device; without one
+they skip.  The file imports torch, numpy and ``repro_torch`` only, so it
+runs on a GPU machine that has no JAX:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances (kernel vs plain version, max|Δ| / max|plain|): fp32 1e-5,
+fp64 1e-12.  With bf16 storage both read the same bf16 operands and compute
+in fp32, so they are held to the fp32 bar, 1e-5.  ``nvcc`` contracts
+``a - b*c`` into an FMA, so the two agree to a few ulps, not bitwise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import penta, tridiag
+from repro_torch.kernels import engine, ops
+from repro_torch.solver import BandedSystem, factorize, solve
+
+pytestmark = pytest.mark.cuda
+
+N, M = 37, 1000
+SPECS = sorted(engine.REGISTRY)
+STORAGES = {"float32": 1e-5, "float64": 1e-12, "bf16": 1e-5}
+CONFIGS = [(bw, mode, periodic) for bw in (3, 5)
+           for mode in ("constant", "uniform") for periodic in (False, True)]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the sweep kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _diags(bw: int, uniform: bool, n: int = N, dtype=np.float64):
+    if uniform:
+        vals = (-0.4, 1.8, -0.4) if bw == 3 else (0.4, -1.6, 3.4, -1.6, 0.4)
+        return [np.full(n, v, dtype) for v in vals]
+    rng = np.random.default_rng(bw)
+    if bw == 3:
+        diags = [rng.uniform(-1, 1, n), 4 + rng.uniform(0, 1, n),
+                 rng.uniform(-1, 1, n)]
+    else:
+        diags = [rng.uniform(-0.5, 0.5, n) for _ in range(5)]
+        diags[2] = diags[2] + 6
+    return [d.astype(dtype) for d in diags]
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    assert got.shape == want.shape
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+def _to(factor, device):
+    return dataclasses.replace(factor, **{
+        f.name: getattr(factor, f.name).to(device)
+        for f in dataclasses.fields(factor)})
+
+
+@pytest.mark.parametrize("storage", sorted(STORAGES))
+@pytest.mark.parametrize("name", SPECS)
+def test_kernel_matches_plain(name, storage, cuda_device):
+    spec = engine.REGISTRY[name]
+    dtype = np.float64 if storage == "float64" else np.float32
+    sdt = "bf16" if storage == "bf16" else None
+    diags = [torch.from_numpy(d) for d in _diags(spec.bandwidth, spec.uniform,
+                                                 dtype=dtype)]
+    f = (tridiag.thomas_factor(*diags) if spec.bandwidth == 3
+         else penta.penta_factor(*diags))
+    rhs = torch.from_numpy(
+        np.random.default_rng(4).normal(size=(N, M)).astype(dtype))
+    fn = ops.thomas_constant if spec.bandwidth == 3 else ops.penta_constant
+    kw = {} if spec.bandwidth == 3 else {"uniform": spec.uniform}
+    want = fn(f, rhs, transposed=spec.transposed, storage_dtype=sdt, **kw)
+    before = ops.LAUNCHES.get(name, 0)
+    got = fn(_to(f, cuda_device), rhs.to(cuda_device),
+             transposed=spec.transposed, storage_dtype=sdt, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[name] == before + 1
+    assert got.is_cuda and got.dtype == want.dtype
+    assert _rel(got, want) <= STORAGES[storage]
+
+
+@pytest.mark.parametrize("chunk_n", (1, 7, 512))
+@pytest.mark.parametrize("threads", (32, 256))
+def test_kernel_tiling_knobs_do_not_change_the_answer(threads, chunk_n,
+                                                      cuda_device):
+    spec = engine.REGISTRY["penta_constant_t"]
+    diags = [torch.from_numpy(d) for d in _diags(5, False, dtype=np.float32)]
+    f = _to(penta.penta_factor(*diags), cuda_device)
+    lhs = ops.stack_penta_lhs(f, transposed=True).contiguous()
+    rhs = torch.randn(N, 77, device=cuda_device)
+    want = ops.shared_sweep_plain(spec, lhs, rhs)
+    got = ops.shared_sweep_cuda(spec, lhs, rhs, threads=threads,
+                                chunk_n=chunk_n)
+    assert _rel(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("cfg", CONFIGS)
+def test_solver_on_card_matches_cpu(cfg, cuda_device):
+    bw, mode, periodic = cfg
+    ctor = BandedSystem.tridiag if bw == 3 else BandedSystem.penta
+    diags = _diags(bw, mode == "uniform", dtype=np.float32)
+    card = ctor(*diags, n=N, periodic=periodic, mode=mode)
+    host = ctor(*diags, n=N, periodic=periodic, mode=mode, device="cpu")
+    assert card.device.type == "cuda"
+    rhs = torch.from_numpy(
+        np.random.default_rng(5).normal(size=(N, 9)).astype(np.float32))
+    fact = factorize(card, backend="auto")
+    assert fact.backend == "cuda"
+    before = sum(ops.LAUNCHES.values())
+    r_card = rhs.to(cuda_device).requires_grad_()
+    x = solve(fact, r_card)
+    x.pow(2).sum().backward()
+    torch.cuda.synchronize()
+    assert sum(ops.LAUNCHES.values()) == before + 2   # forward + transposed
+    r_host = rhs.clone().requires_grad_()
+    want = solve(factorize(host, backend="cuda"), r_host)
+    want.pow(2).sum().backward()
+    assert _rel(x, want) <= 1e-5
+    assert _rel(r_card.grad, r_host.grad) <= 1e-5
