@@ -9,13 +9,18 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
   1. the card (``nvidia-smi`` name and power limit) and torch / CUDA versions;
   2. build every kernel from the checkout's sources (``build/repro_torch/``);
   3. each kernel against its plain-torch version on the card, for every
-     sweep variant and storage type, at main-path and edge shapes;
+     sweep variant and storage type, at main-path and edge shapes (the
+     batch sweep with distinct diagonals in every system);
   4. the main path at full size through ``repro_torch.solver`` (factorize
      with ``backend="auto"``, solve, and the adjoint through
      ``loss.backward()``), with the launch counts read around each case and
-     the residual ``‖A x − d‖ / ‖d‖`` checked;
+     the residual ``‖A x − d‖ / ‖d‖`` checked: shared-LHS cases (a)–(c)
+     and per-system-LHS (batch) cases (d)–(e);
   5. kernel, plain-version and library times at the main-path shapes,
-     beside the least time the card could take;
+     beside the least time the card could take; each batch row also
+     times the shared sweep on the same operator and shape, the paper's
+     comparison, and holds the batch sweep to its plain version at the
+     full grid on distinct diagonals in every system;
   6. one ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -134,6 +139,35 @@ def sweep_operands(spec, f, rhs, storage):
     return lhs, rhs, eps
 
 
+def random_batch_operands(spec, n: int, m: int, storage, gen):
+    """Distinct, diagonally dominant (n, m) diagonals for every system and
+    an (n, m) RHS, on the card at ``storage``: a kernel that read one
+    system's coefficients for another would disagree with its plain
+    version."""
+    import torch
+
+    def u(lo, hi):
+        return lo + (hi - lo) * torch.rand(n, m, generator=gen, device="cuda",
+                                           dtype=torch.float64)
+    if spec.bandwidth == 3:
+        diags = [u(-1, 1), u(4, 5), u(-1, 1)]
+    else:
+        diags = [u(-0.5, 0.5) for _ in range(5)]
+        diags[2] += 6
+    rhs = torch.randn(n, m, generator=gen, device="cuda", dtype=torch.float64)
+    return [d.to(storage) for d in diags], rhs.to(storage)
+
+
+def ops_per_row(spec) -> int:
+    """Arithmetic operations per row and system, read off each kernel's
+    source, a division counted as one: the shared sweep does 2 per carry
+    term in each pass plus the scale; the batch sweep's fused forward pass
+    does 7 (tridiag) or 16 (penta), its backward 2 or 4."""
+    if spec.layout == "batch":
+        return 9 if spec.order == 1 else 20
+    return 4 * spec.order + 1
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -149,9 +183,29 @@ def phase_kernel_vs_plain() -> None:
               (200, 1000))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     factors, worst = {}, {}
+
+    def compare(name, label, n, m, got, want):
+        torch.cuda.synchronize()
+        check(got.dtype == want.dtype and got.shape == want.shape,
+              f"{name}/{label} N={n} M={m}: dtype or shape differs")
+        err = rel_err(got, want)
+        check(err <= _TOLERANCE[label],
+              f"{name}/{label} N={n} M={m}: kernel vs plain "
+              f"{err:.3e} > {_TOLERANCE[label]}")
+        key = f"{name}/{label}"
+        worst[key] = max(worst.get(key, 0.0), err)
+
     for name, spec in engine.REGISTRY.items():
         for label, (dtype, storage) in storages.items():
             for n, m in shapes:
+                if spec.layout == "batch":
+                    diags, rhs = random_batch_operands(spec, n, m, storage,
+                                                       gen)
+                    compare(name, label, n, m,
+                            ops.batch_sweep_cuda(spec, diags, rhs),
+                            ops.batch_sweep_plain(spec, diags, rhs))
+                    del diags, rhs
+                    continue
                 if spec.bandwidth == 5 and n < 2:
                     continue   # the penta factor needs N >= 2
                 fkey = (spec.bandwidth, spec.uniform, n, dtype)
@@ -161,17 +215,10 @@ def phase_kernel_vs_plain() -> None:
                 rhs = torch.randn(n, m, generator=gen, device="cuda",
                                   dtype=dtype)
                 lhs, rhs, eps = sweep_operands(spec, f, rhs, storage)
-                got = ops.shared_sweep_cuda(spec, lhs, rhs, eps)
-                want = ops.shared_sweep_plain(spec, lhs, rhs, eps)
-                torch.cuda.synchronize()
-                check(got.dtype == want.dtype and got.shape == want.shape,
-                      f"{name}/{label} N={n} M={m}: dtype or shape differs")
-                err = rel_err(got, want)
-                check(err <= _TOLERANCE[label],
-                      f"{name}/{label} N={n} M={m}: kernel vs plain "
-                      f"{err:.3e} > {_TOLERANCE[label]}")
-                key = f"{name}/{label}"
-                worst[key] = max(worst.get(key, 0.0), err)
+                compare(name, label, n, m,
+                        ops.shared_sweep_cuda(spec, lhs, rhs, eps),
+                        ops.shared_sweep_plain(spec, lhs, rhs, eps))
+        torch.cuda.empty_cache()
     emit({"phase": "kernel_vs_plain", "shapes": [list(s) for s in shapes],
           "tolerance": _TOLERANCE, "max_rel_err": worst})
 
@@ -206,29 +253,44 @@ def main_path_cases():
         "c": ("Dirichlet tridiag constant", 16384, 65536,
               lambda: BandedSystem.tridiag(-s, 1 + 2 * s, -s, n=16384,
                                            periodic=False, mode="constant")),
+        "d": ("Dirichlet tridiag batch (CN diffusion)", 512, 1 << 20,
+              lambda: BandedSystem.tridiag(-s, 1 + 2 * s, -s, n=512,
+                                           periodic=False, mode="batch",
+                                           batch=1 << 20)),
+        "e": ("Dirichlet penta batch (CN hyperdiffusion)", 512, 1 << 20,
+              lambda: BandedSystem.penta(s, -4 * s, 1 + 6 * s, -4 * s, s,
+                                         n=512, periodic=False, mode="batch",
+                                         batch=1 << 20)),
     }
 
 
+# cases whose solve runs backward too, and the launches the batch cases
+# must show: the forward sweep, plus the rolled adjoint on (d)
+_BACKWARD = ("a", "d")
+_BATCH_LAUNCHES = {"d": {"thomas_batch": 2}, "e": {"penta_batch": 1}}
+
+
 def phase_main_path() -> dict:
-    """Each case: counts to 0, factorize + solve (+ backward on (a)), counts
-    read; then the residual and, for (a), the gradient are checked."""
+    """Each case: counts to 0, factorize + solve (+ backward on (a) and
+    (d)), counts read; then the residual and, for (a) and (d), the gradient
+    are checked."""
     import torch
     from repro_torch.core import tridiag
     from repro_torch.kernels import engine, ops
-    from repro_torch.solver import factorize, solve
+    from repro_torch.solver import factorize, reference, solve
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     results = {}
     for key, (title, n, m, make) in main_path_cases().items():
         system = make()
         rhs = torch.randn(n, m, generator=gen, device="cuda",
-                          requires_grad=(key == "a"))
+                          requires_grad=(key in _BACKWARD))
         torch.cuda.synchronize()
         ops.reset_launches()
         t0 = time.perf_counter()
         fact = factorize(system, backend="auto")
         x = solve(fact, rhs)
-        if key == "a":
+        if key in _BACKWARD:
             loss = (x ** 2).sum()
             loss.backward()
         torch.cuda.synchronize()
@@ -239,6 +301,10 @@ def phase_main_path() -> dict:
         fwd = sum(v for k, v in launches.items() if not k.endswith("_t"))
         bwd = sum(v for k, v in launches.items() if k.endswith("_t"))
         check(fwd > 0, f"({key}) the forward sweep kernel never launched")
+        if key in _BATCH_LAUNCHES:
+            check(launches == _BATCH_LAUNCHES[key],
+                  f"({key}) launches {launches}, expected "
+                  f"{_BATCH_LAUNCHES[key]}")
         with torch.no_grad():
             d = rhs.detach()
             resid = (torch.linalg.vector_norm(banded_matvec(system, x) - d)
@@ -262,75 +328,211 @@ def phase_main_path() -> dict:
             check(gerr <= 1e-5, f"(a) rhs.grad vs plain transposed solve "
                                 f"{gerr:.3e} > 1e-5")
             row["grad_rel_err"] = gerr
+        if key == "d":
+            # the adjoint: the plain batch sweep on the rolled diagonals
+            with torch.no_grad():
+                rolled = reference.transposed_batch_diagonals(3, fact.stored)
+                want = ops.batch_sweep_plain(engine.find_spec(3, "batch"),
+                                             rolled, (2 * x).contiguous())
+                gerr = rel_err(rhs.grad, want)
+                del rolled, want
+            check(gerr <= 1e-5, f"(d) rhs.grad vs plain batch sweep on the "
+                                f"rolled diagonals {gerr:.3e} > 1e-5")
+            row["grad_rel_err"] = gerr
         emit(row)
+        # a batch factorization holds (N, M) copies of every diagonal:
+        # phase_times rebuilds them rather than keep them all alive
         results[key] = {"launches": fwd + bwd, "system": system,
-                        "fact": fact}
-        del x, rhs
+                        "fact": None if system.mode == "batch" else fact}
+        del x, rhs, fact
         torch.cuda.empty_cache()
     return results
 
 
-def phase_times(main: dict, card: str) -> list:
-    """Kernel, plain and library times of the forward sweep at each
-    main-path shape; bound from this run's shapes and the card's peaks."""
+def bound(spec, n: int, m: int, card: str) -> tuple:
+    """(bound_ms, bound_by) of one fp32 solve: the larger of the bytes the
+    function must move over the card's memory rate and its operations
+    over the card's fp32 rate."""
     import torch
+    rate, flops = card_rates(card)
+    bytes_ms = spec.traffic_bytes(n, m, torch.float32) / rate * 1e3
+    ops_ms = ops_per_row(spec) * n * m / flops["float32"] * 1e3
+    if bytes_ms >= ops_ms:
+        return bytes_ms, "bytes"
+    return ops_ms, "operations"
+
+
+def kernel_stats(fn) -> dict:
+    """Median of 20 CUDA-event timings of ``fn`` with its quartiles."""
+    times = event_times(fn, reps=20)
+    q1, _, q3 = statistics.quantiles(times, n=4)
+    return {"ms": statistics.median(times), "ms_q1": q1, "ms_q3": q3,
+            "reps": len(times)}
+
+
+def shared_times(key: str, entry: dict, card: str, gen) -> dict:
+    """The shared sweep's row: kernel, plain and ``lu_solve`` times."""
+    import torch
+    from repro_torch.core import dense_penta, dense_tridiag
     from repro_torch.kernels import engine, ops
 
-    bw, flops = card_rates(card)
+    title, n, m, _make = main_path_cases()[key]
+    system, fact = entry["system"], entry["fact"]
+    spec = engine.find_spec(system.bandwidth, system.mode)
+    factor = fact.stored.factor if system.periodic else fact.stored
+    rhs = torch.randn(n, m, generator=gen, device="cuda")
+    lhs, rhs, eps = sweep_operands(spec, factor, rhs, torch.float32)
+    stats = kernel_stats(lambda: ops.shared_sweep_cuda(spec, lhs, rhs, eps))
+    plain_reps = 3 if n > 4096 else 5
+    plain_ms = event_ms(lambda: ops.shared_sweep_plain(spec, lhs, rhs, eps),
+                        reps=plain_reps, warmup=1)
+    got = ops.shared_sweep_cuda(spec, lhs, rhs, eps)
+    want = ops.shared_sweep_plain(spec, lhs, rhs, eps)
+    max_abs_err = (got - want).abs().max().item()
+    check(max_abs_err <= 1e-5 * want.abs().max().item(),
+          f"({key}) kernel vs plain max|Δ| {max_abs_err:.3e}")
+    del got, want
+    bound_ms, bound_by = bound(spec, n, m, card)
+    # yardstick only: one PyTorch call solving the same dense system
+    # from a precomputed LU (the port never calls it)
+    dense = (dense_tridiag if system.bandwidth == 3 else dense_penta)(
+        *system.diagonals, periodic=system.periodic)
+    lu, piv = torch.linalg.lu_factor(dense)
+    del dense
+    library_ms = event_ms(lambda: torch.linalg.lu_solve(lu, piv, rhs),
+                          reps=20 if n <= 512 else 5, warmup=1)
+    del lu, piv, lhs, rhs
+    return {
+        "name": f"shared_sweep/{spec.name}/N{n}xM{m}",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/shared_sweep.cu",
+        "replaces": "src/repro/kernels/engine.py:760",
+        "also_replaces": ["src/repro/kernels/engine.py:777",
+                          "src/repro/kernels/engine.py:795"],
+        "launches": entry["launches"],
+        "max_abs_err": max_abs_err,
+        "ms": stats["ms"], "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms,
+        "case": key, "title": title, "ms_q1": stats["ms_q1"],
+        "ms_q3": stats["ms_q3"], "reps": stats["reps"],
+    }
+
+
+# Systems of the batched dense LU that stands beside the batch sweep: a
+# dense (M, N, N) LU of all 2^20 systems would take about 1 TiB.
+LIBRARY_M = 4096
+
+
+def batch_times(key: str, entry: dict, card: str, gen) -> dict:
+    """The batch sweep's row: kernel, plain, shared-sweep and library
+    times.  ``shared_ms`` is the shared sweep on one factor of the same
+    operator at the same N and M (constant mode): the paper's comparison
+    of cuThomasConstantBatch / cuPentConstantBatch with cuThomasBatch /
+    cuPentBatch.  ``library_ms`` is a batched dense ``lu_solve`` from a
+    precomputed ``lu_factor`` of ``LIBRARY_M`` systems, beside the kernel's
+    own time at that M (``ms_at_library_m``)."""
+    import torch
+    from repro_torch.core import dense_penta, dense_tridiag, penta, tridiag
+    from repro_torch.kernels import engine, ops
+    from repro_torch.solver import factorize, reference
+
+    title, n, m, _make = main_path_cases()[key]
+    system = entry["system"]
+    bw = system.bandwidth
+    spec = engine.find_spec(bw, "batch")
+    diags = list(reference.batch_diagonals(
+        bw, factorize(system, backend="auto").stored))
+    rhs = torch.randn(n, m, generator=gen, device="cuda")
+    stats = kernel_stats(lambda: ops.batch_sweep_cuda(spec, diags, rhs))
+    plain_ms = event_ms(lambda: ops.batch_sweep_plain(spec, diags, rhs),
+                        reps=5, warmup=1)
+    got = ops.batch_sweep_cuda(spec, diags, rhs)
+    want = ops.batch_sweep_plain(spec, diags, rhs)
+    max_abs_err = (got - want).abs().max().item()
+    check(max_abs_err <= 1e-5 * want.abs().max().item(),
+          f"({key}) kernel vs plain max|Δ| {max_abs_err:.3e}")
+    del got, want
+    torch.cuda.empty_cache()
+
+    # the shared sweep on one factor of the same operator, same N and M
+    shared_spec = engine.find_spec(bw, "constant")
+    if bw == 3:
+        lhs = ops.stack_tridiag_lhs(tridiag.thomas_factor(*system.diagonals))
+    else:
+        lhs = ops.stack_penta_lhs(penta.penta_factor(*system.diagonals))
+    lhs = lhs.contiguous()
+    shared_ms = kernel_stats(
+        lambda: ops.shared_sweep_cuda(shared_spec, lhs, rhs))["ms"]
+    torch.cuda.empty_cache()
+
+    # the kernel and the library call at LIBRARY_M systems
+    small = [d[:, :LIBRARY_M].contiguous() for d in diags]
+    rhs_small = rhs[:, :LIBRARY_M].contiguous()
+    del diags, rhs
+    torch.cuda.empty_cache()
+    ms_small = kernel_stats(
+        lambda: ops.batch_sweep_cuda(spec, small, rhs_small))["ms"]
+    dense = (dense_tridiag if bw == 3 else dense_penta)(*system.diagonals)
+    lu, piv = torch.linalg.lu_factor(
+        dense.expand(LIBRARY_M, n, n).contiguous())
+    del dense
+    b = rhs_small.t().contiguous()[..., None]
+    x_lib = torch.linalg.lu_solve(lu, piv, b)[..., 0].t()
+    x_ker = ops.batch_sweep_cuda(spec, small, rhs_small)
+    lib_err = rel_err(x_ker, x_lib)
+    check(lib_err <= 1e-4, f"({key}) kernel vs lu_solve at M={LIBRARY_M}: "
+                           f"{lib_err:.3e} > 1e-4")
+    library_ms = event_ms(lambda: torch.linalg.lu_solve(lu, piv, b), reps=20,
+                          warmup=1)
+    del lu, piv, b, small, rhs_small, x_lib, x_ker
+    torch.cuda.empty_cache()
+
+    # the main path's systems all tile one LHS: at its full grid, hold the
+    # kernel to its plain version on distinct diagonals in every system too
+    diags, rhs = random_batch_operands(spec, n, m, torch.float32, gen)
+    got = ops.batch_sweep_cuda(spec, diags, rhs)
+    want = ops.batch_sweep_plain(spec, diags, rhs)
+    distinct_err = rel_err(got, want)
+    check(distinct_err <= _TOLERANCE["float32"],
+          f"({key}) kernel vs plain on distinct diagonals at N={n} M={m}: "
+          f"{distinct_err:.3e} > {_TOLERANCE['float32']}")
+    del diags, rhs, got, want
+    torch.cuda.empty_cache()
+    bound_ms, bound_by = bound(spec, n, m, card)
+    return {
+        "name": f"batch_sweep/{spec.name}/N{n}xM{m}",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/batch_sweep.cu",
+        "replaces": "src/repro/kernels/engine.py:947",
+        "also_replaces": ["src/repro/kernels/engine.py:963",
+                          "src/repro/kernels/engine.py:984",
+                          "src/repro/kernels/engine.py:1002"],
+        "launches": entry["launches"],
+        "max_abs_err": max_abs_err,
+        "ms": stats["ms"], "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "library_m": LIBRARY_M,
+        "ms_at_library_m": ms_small, "library_rel_err": lib_err,
+        "distinct_rel_err": distinct_err,
+        "shared_ms": shared_ms, "batch_over_shared": stats["ms"] / shared_ms,
+        "case": key, "title": title, "ms_q1": stats["ms_q1"],
+        "ms_q3": stats["ms_q3"], "reps": stats["reps"],
+    }
+
+
+def phase_times(main: dict, card: str) -> list:
+    """Kernel, plain and library times of each main-path case's sweep at
+    its shape; bound from this run's shapes and the card's peaks."""
+    import torch
+
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rows = []
-    for key, (title, n, m, _make) in main_path_cases().items():
-        system, fact = main[key]["system"], main[key]["fact"]
-        spec = engine.find_spec(system.bandwidth, system.mode)
-        factor = fact.stored.factor if system.periodic else fact.stored
-        rhs = torch.randn(n, m, generator=gen, device="cuda")
-        lhs, rhs, eps = sweep_operands(spec, factor, rhs, torch.float32)
-        kernel_times = event_times(
-            lambda: ops.shared_sweep_cuda(spec, lhs, rhs, eps), reps=20)
-        kernel_ms = statistics.median(kernel_times)
-        q1, _, q3 = statistics.quantiles(kernel_times, n=4)
-        plain_reps = 3 if n > 4096 else 5
-        plain_ms = event_ms(lambda: ops.shared_sweep_plain(spec, lhs, rhs,
-                                                           eps),
-                            reps=plain_reps, warmup=1)
-        got = ops.shared_sweep_cuda(spec, lhs, rhs, eps)
-        want = ops.shared_sweep_plain(spec, lhs, rhs, eps)
-        max_abs_err = (got - want).abs().max().item()
-        check(max_abs_err <= 1e-5 * want.abs().max().item(),
-              f"({key}) kernel vs plain max|Δ| {max_abs_err:.3e}")
-        del got, want
-        bytes_needed = spec.traffic_bytes(n, m, torch.float32)
-        ops_needed = (4 * spec.order + 1) * n * m
-        bytes_ms = bytes_needed / bw * 1e3
-        ops_ms = ops_needed / flops["float32"] * 1e3
-        # yardstick only: one PyTorch call solving the same dense system
-        # from a precomputed LU (the port never calls it)
-        from repro_torch.core import dense_penta, dense_tridiag
-        dense = (dense_tridiag if system.bandwidth == 3 else dense_penta)(
-            *system.diagonals, periodic=system.periodic)
-        lu, piv = torch.linalg.lu_factor(dense)
-        del dense
-        library_ms = event_ms(lambda: torch.linalg.lu_solve(lu, piv, rhs),
-                              reps=20 if n <= 512 else 5, warmup=1)
-        del lu, piv
-        rows.append({
-            "name": f"shared_sweep/{spec.name}/N{n}xM{m}",
-            "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/shared_sweep.cu",
-            "replaces": "src/repro/kernels/engine.py:760",
-            "also_replaces": ["src/repro/kernels/engine.py:777",
-                              "src/repro/kernels/engine.py:795"],
-            "launches": main[key]["launches"],
-            "max_abs_err": max_abs_err,
-            "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": library_ms,
-            "case": key, "title": title, "ms_q1": q1, "ms_q3": q3,
-            "reps": len(kernel_times),
-        })
+    for key, entry in main.items():
+        times = batch_times if entry["system"].mode == "batch" else \
+            shared_times
+        rows.append(times(key, entry, card, gen))
         emit({"phase": "times", **rows[-1]})
-        del lhs, rhs
         torch.cuda.empty_cache()
     return rows
 

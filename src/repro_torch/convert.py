@@ -46,8 +46,9 @@ def from_jax_factorization(stored_np, meta_dict: Mapping, *, device,
     ``meta_dict`` holds ``SolveMeta``'s fields (``bandwidth``, ``n``,
     ``mode``, ``periodic``, ``backend``, ``options``).  A ``pallas``
     factorization becomes a ``cuda`` one (the same stored layout; its
-    ``storage_dtype`` carries over, its TPU tiling does not); a batch-mode
-    one becomes a ``reference`` one.
+    ``storage_dtype`` carries over, its TPU tiling does not), a Dirichlet
+    batch-mode one included; a periodic batch-mode one, which has no
+    kernel, becomes a ``reference`` one.
     ``diagonals`` are the spec's (N,) diagonals, needed only for their
     gradients."""
     device = torch.device(device)
@@ -62,10 +63,8 @@ def from_jax_factorization(stored_np, meta_dict: Mapping, *, device,
     except KeyError:
         raise ValueError(f"no port backend holds the stored layout of JAX "
                          f"backend {meta_dict['backend']!r}") from None
-    if mode == "batch":
-        # per-system copies: the reference backend serves them until the
-        # batch slice brings the cuda kernel
-        backend = "reference"
+    if mode == "batch" and periodic:
+        backend = "reference"   # no kernel for periodic per-system copies
     jax_opts = dict(meta_dict.get("options", ()))
 
     fields = _fields(stored_np)

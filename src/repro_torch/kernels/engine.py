@@ -1,4 +1,4 @@
-"""The sweep descriptions behind the shared-LHS solve kernel — as data.
+"""The sweep descriptions behind the solve kernels — as data.
 
 Every shared-LHS banded solve (tridiagonal or pentadiagonal, constant or
 uniform storage, forward or transposed) is one two-pass sweep in which
@@ -17,6 +17,11 @@ stored inverse diagonal as its scale, differ between variants.
     ``(bandwidth, uniform, transposed)``.  The CUDA kernel
     (``csrc/shared_sweep.cu``) and its plain version (``ops``) both take
     their arguments from this table; no variant has code of its own.
+  * ``_BATCH_BWD`` — the back substitution of the batch layout
+    (cuThomasBatch / cuPentBatch): each system has its own LHS, the
+    factorisation is fused into the forward pass (``ops.batch_sweep_plain``
+    and ``csrc/batch_sweep.cu``) and leaves ``c_hat`` (or ``gamma`` and
+    ``delta``) per system, which this pass reads.
   * ``SweepSpec`` / ``find_spec`` — one variant, with the byte accounting
     (``traffic_words`` / ``traffic_bytes``) derived from its shape.
 
@@ -74,6 +79,13 @@ _PASS_TABLE = {
                       PassSpec(((3, 1), (EPS_PARAM, 2)), 2)),
 }
 
+# Batch-layout back substitution, by carry order: row r of the per-system
+# coefficients the fused factorisation produced (c_hat, or gamma/delta).
+_BATCH_BWD = {
+    1: PassSpec(((0, 1),), None),
+    2: PassSpec(((0, 1), (1, 2)), None),
+}
+
 
 def _itemsize(dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
@@ -87,17 +99,27 @@ def compute_dtype(dtype) -> torch.dtype:
 
 @dataclasses.dataclass(frozen=True)
 class SweepSpec:
-    """One shared-LHS solve variant."""
+    """One solve variant: a shared factored LHS, or per-system LHS copies
+    (``layout="batch"``)."""
 
     bandwidth: int            # 3 | 5
+    layout: str = "shared"    # "shared" (one factored LHS) | "batch"
     transposed: bool = False  # solve A^T x = rhs from the same factor
-    uniform: bool = False     # penta only: eps as a 1-element operand
+    uniform: bool = False     # penta shared only: eps as a 1-element operand
 
     def __post_init__(self):
         if self.bandwidth not in (3, 5):
             raise ValueError(f"bandwidth must be 3 or 5, got {self.bandwidth}")
-        if self.uniform and self.bandwidth != 5:
-            raise ValueError("uniform is a penta concept (cuPentUniformBatch)")
+        if self.layout not in ("shared", "batch"):
+            raise ValueError(f"unknown layout {self.layout!r}")
+        if self.uniform and (self.bandwidth != 5 or self.layout != "shared"):
+            raise ValueError("uniform is a shared-penta concept "
+                             "(cuPentUniformBatch)")
+        if self.transposed and self.layout == "batch":
+            raise ValueError(
+                "no transposed batch sweep: rolling the per-system diagonals "
+                "turns A^T into another batch system, which the forward "
+                "batch sweep solves")
 
     @property
     def order(self) -> int:
@@ -106,13 +128,23 @@ class SweepSpec:
 
     @property
     def lhs_rows(self) -> int:
-        """Rows of the stacked shared LHS."""
+        """Rows of the stacked shared LHS (0 for the batch layout)."""
+        if self.layout != "shared":
+            return 0
         if self.bandwidth == 3:
             return 3
         return 4 if self.uniform else 5
 
     @property
+    def n_coefs(self) -> int:
+        """Per-system coefficient arrays the fused factorisation produces
+        (c_hat, or gamma and delta): the batch sweep's workspace."""
+        return self.order if self.layout == "batch" else 0
+
+    @property
     def mode(self) -> str:
+        if self.layout == "batch":
+            return "batch"
         return "uniform" if self.uniform else "constant"
 
     @property
@@ -121,14 +153,21 @@ class SweepSpec:
         return f"{base}_{self.mode}" + ("_t" if self.transposed else "")
 
     def passes(self) -> tuple:
-        """(forward PassSpec, backward PassSpec) for this variant."""
+        """(forward PassSpec, backward PassSpec) for this variant.  The
+        batch layout's forward pass is the fused factorisation, which has
+        no pass table: it is ``(None, _BATCH_BWD[order])``."""
+        if self.layout == "batch":
+            return None, _BATCH_BWD[self.order]
         return _PASS_TABLE[(self.bandwidth, self.uniform, self.transposed)]
 
     # -- accounting: the least traffic the function needs ---------------------
 
     def storage_words(self, n: int, m: int) -> int:
         """Words read from stored operands: the RHS once, each LHS row
-        once, and the eps parameter."""
+        once, and the eps parameter; for the batch layout, each of the
+        ``bandwidth`` per-system diagonals and the RHS once."""
+        if self.layout == "batch":
+            return (self.bandwidth + 1) * n * m
         return n * m + self.lhs_rows * n + (1 if self.uniform else 0)
 
     def compute_words(self, n: int, m: int) -> int:
@@ -136,8 +175,9 @@ class SweepSpec:
         return n * m
 
     def traffic_words(self, n: int, m: int) -> int:
-        """The paper's floor for one solve, ``2NM + kN`` words: each
-        input read once and x written once."""
+        """The least traffic of one solve, each input read once and x
+        written once: the paper's ``2NM + kN`` words for a shared LHS,
+        ``(bandwidth + 2)·NM`` for per-system copies."""
         return self.storage_words(n, m) + self.compute_words(n, m)
 
     def traffic_bytes(self, n: int, m: int, dtype=torch.float32,
@@ -150,23 +190,25 @@ class SweepSpec:
 
 
 REGISTRY: dict = {
-    s.name: s for s in (SweepSpec(bw, transposed=t, uniform=u)
-                        for bw in (3, 5) for u in (False, True)
-                        for t in (False, True) if not (u and bw == 3))
+    s.name: s for s in (
+        *(SweepSpec(bw, transposed=t, uniform=u)
+          for bw in (3, 5) for u in (False, True)
+          for t in (False, True) if not (u and bw == 3)),
+        *(SweepSpec(bw, layout="batch") for bw in (3, 5)))
 }
 
 
 def find_spec(bandwidth: int, mode: str, *,
               transposed: bool = False) -> SweepSpec:
     """The spec serving (bandwidth, storage mode); tridiagonal ``uniform``
-    shares the constant variant (it has no eps row to drop)."""
+    shares the constant variant (it has no eps row to drop).  The batch
+    layout has no transposed variant: its adjoint is another batch system
+    on rolled diagonals."""
     if bandwidth not in (3, 5):
         raise ValueError(f"no sweep for bandwidth={bandwidth!r}; "
                          "3 (tridiagonal) and 5 (pentadiagonal) exist")
     if mode == "batch":
-        raise NotImplementedError(
-            "per-system LHS (mode='batch') kernels arrive with the batch "
-            "slice; only the shared-LHS sweep is ported")
+        return SweepSpec(bandwidth, layout="batch", transposed=transposed)
     if mode not in ("constant", "uniform"):
         raise ValueError(f"unknown storage mode {mode!r}")
     return SweepSpec(bandwidth, transposed=transposed,
@@ -176,3 +218,8 @@ def find_spec(bandwidth: int, mode: str, *,
 def pass_table() -> dict:
     """A copy of ``_PASS_TABLE`` (mutating it cannot corrupt the sweep)."""
     return dict(_PASS_TABLE)
+
+
+def batch_backward_table() -> dict:
+    """A copy of ``_BATCH_BWD``."""
+    return dict(_BATCH_BWD)

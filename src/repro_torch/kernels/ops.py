@@ -1,6 +1,6 @@
-"""Entry points of the shared-LHS sweep kernel.
+"""Entry points of the sweep kernels.
 
-Counterpart of the shared-LHS half of ``repro.kernels.ops``:
+Counterpart of ``repro.kernels.ops``.  The shared-LHS half:
 
   * ``stack_tridiag_lhs`` / ``stack_penta_lhs`` stack the stored factor
     into the kernel's (rows, N) LHS — including the host-side row SHIFTS
@@ -13,8 +13,16 @@ Counterpart of the shared-LHS half of ``repro.kernels.ops``:
     a CPU tensor goes to ``shared_sweep_plain``, the same arithmetic in
     plain torch.  There is no fallback from one to the other.
 
-``LAUNCHES`` counts the kernel's launches by sweep variant; it is bumped
-where the kernel launches and nowhere else.
+The per-system-LHS half (cuThomasBatch / cuPentBatch):
+
+  * ``thomas_batch`` / ``penta_batch`` solve M systems that each carry
+    their own (N, M)-interleaved diagonals, with the factorisation fused
+    into the solve;
+  * ``batch_sweep`` dispatches the same way, to ``csrc/batch_sweep.cu``
+    or to ``batch_sweep_plain``.
+
+``LAUNCHES`` counts the kernels' launches by sweep variant; it is bumped
+where a kernel launches and nowhere else.
 """
 
 from __future__ import annotations
@@ -26,6 +34,17 @@ import torch
 from ..core.tridiag import _shift_down, _shift_up
 from . import build
 from .engine import EPS_PARAM, SweepSpec, compute_dtype, find_spec
+
+_C_INT, _C_PTR, _C_I64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
+# The C entry point of each kernel library, by name.
+_ARGTYPES = {
+    # dtype, lhs, rows, rhs, out, eps, n, m, desc, threads, chunk_n, stream
+    "shared_sweep": [_C_INT, _C_PTR, _C_INT, _C_PTR, _C_PTR, _C_PTR, _C_I64,
+                     _C_I64, ctypes.POINTER(_C_INT), _C_INT, _C_INT, _C_PTR],
+    # dtype, bandwidth, diags, rhs, out, work, n, m, threads, stream
+    "batch_sweep": [_C_INT, _C_INT, ctypes.POINTER(_C_PTR), _C_PTR, _C_PTR,
+                    _C_PTR, _C_I64, _C_I64, _C_INT, _C_PTR],
+}
 
 #: Kernel launches by spec name (``thomas_constant``, ``penta_uniform_t``…).
 LAUNCHES: dict = {}
@@ -145,16 +164,13 @@ def sweep_desc(spec: SweepSpec) -> list:
             + _pass_desc(bwd, spec.lhs_rows))
 
 
-def _library():
-    lib = build.load("shared_sweep")
-    fn = lib.shared_sweep
+def _kernel(name: str):
+    """The C entry point ``name`` of the library of the same name, built
+    and loaded at first use."""
+    fn = getattr(build.load(name), name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = _ARGTYPES[name]
     return fn
 
 
@@ -196,7 +212,7 @@ def shared_sweep_cuda(spec: SweepSpec, lhs: torch.Tensor, rhs: torch.Tensor,
     out = torch.empty((n, m), dtype=cdt, device=rhs.device)
     if n == 0 or m == 0:
         return out
-    fn = _library()
+    fn = _kernel("shared_sweep")
     desc = (ctypes.c_int * 11)(*sweep_desc(spec))
     with torch.cuda.device(rhs.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -225,14 +241,128 @@ def shared_sweep(spec: SweepSpec, lhs: torch.Tensor, rhs: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The batch sweep: kernel, plain version, dispatch
+# ---------------------------------------------------------------------------
+
+def batch_sweep_plain(spec: SweepSpec, diags, rhs: torch.Tensor
+                      ) -> torch.Tensor:
+    """The batch kernel's function in plain torch, one row at a time:
+    the factorisation fused into the forward substitution in
+    ``_factor_pass``'s arithmetic order (``repro.kernels.engine``), the
+    per-system coefficients kept in a workspace, then the descending
+    ``_BATCH_BWD`` pass.  ``diags`` are the ``bandwidth`` (N, M)
+    diagonals, sub-most first.  bf16 operands compute (and return) fp32,
+    as the kernel does."""
+    cdt = compute_dtype(rhs.dtype)
+    n, m = rhs.shape
+    out = torch.empty((n, m), dtype=cdt, device=rhs.device)
+    coefs = torch.empty((spec.n_coefs, n, m), dtype=cdt, device=rhs.device)
+    zeros = torch.zeros((m,), dtype=cdt, device=rhs.device)
+
+    def at(r, i):
+        return diags[r][i].to(cdt)
+
+    if spec.order == 1:
+        chat_p = dh_p = zeros
+        for i in range(n):
+            a_i = at(0, i)
+            inv = 1 / (at(1, i) - a_i * chat_p)
+            chat_p = at(2, i) * inv
+            dh_p = (rhs[i].to(cdt) - a_i * dh_p) * inv
+            coefs[0, i], out[i] = chat_p, dh_p
+    else:
+        # carries: gamma, delta and g at lags 1 and 2
+        g1 = g2 = dl1 = dl2 = gg1 = gg2 = zeros
+        for i in range(n):
+            a_i = at(0, i)
+            beta = at(1, i) - a_i * g2
+            alpha = at(2, i) - a_i * dl2 - beta * g1
+            inv = 1 / alpha
+            gamma = (at(3, i) - beta * dl1) * inv
+            delta = at(4, i) * inv
+            g = (rhs[i].to(cdt) - a_i * gg2 - beta * gg1) * inv
+            coefs[0, i], coefs[1, i], out[i] = gamma, delta, g
+            g1, g2, dl1, dl2, gg1, gg2 = gamma, g1, delta, dl1, g, gg1
+
+    _, bwd = spec.passes()
+    carries = (zeros,) * spec.order
+    for i in range(n - 1, -1, -1):
+        acc = out[i]
+        for src, lag in bwd.terms:
+            acc = acc - coefs[src, i] * carries[lag - 1]
+        out[i] = acc
+        carries = (acc,) + carries[:spec.order - 1]
+    return out
+
+
+def batch_sweep_cuda(spec: SweepSpec, diags, rhs: torch.Tensor
+                     ) -> torch.Tensor:
+    """Launch ``csrc/batch_sweep.cu`` on the current stream, with the
+    (order, N, M) coefficient workspace allocated here.  Validates device,
+    dtype, shape and contiguity and raises on what the kernel does not
+    take; raises when the launch reports a CUDA error."""
+    n, m = rhs.shape
+    operands = [*diags, rhs]
+    if spec.layout != "batch" or len(diags) != spec.bandwidth:
+        raise ValueError(f"batch_sweep: {spec.name} is not a batch spec of "
+                         f"{len(diags)} diagonals")
+    if any(not t.is_cuda or t.device != rhs.device for t in operands):
+        raise ValueError("batch_sweep: every operand must lie on one CUDA "
+                         "device")
+    if any(t.dtype != rhs.dtype for t in operands):
+        raise TypeError("batch_sweep: diagonals and rhs must share a dtype")
+    if rhs.dtype not in _DTYPE_CODES:
+        raise TypeError(f"batch_sweep: unsupported dtype {rhs.dtype}")
+    if any(t.shape != (n, m) for t in diags):
+        raise ValueError(f"batch_sweep: every diagonal must be ({n}, {m})")
+    if not all(t.is_contiguous() for t in operands):
+        raise ValueError("batch_sweep: operands must be contiguous")
+    cdt = compute_dtype(rhs.dtype)
+    out = torch.empty((n, m), dtype=cdt, device=rhs.device)
+    if n == 0 or m == 0:
+        return out
+    # ``work`` is freed on return while the kernel may still run: the
+    # caching allocator reuses the block only for work queued after the
+    # kernel on the same stream.
+    work = torch.empty((spec.n_coefs, n, m), dtype=cdt, device=rhs.device)
+    fn = _kernel("batch_sweep")
+    ptrs = (ctypes.c_void_p * spec.bandwidth)(*(t.data_ptr() for t in diags))
+    with torch.cuda.device(rhs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(_DTYPE_CODES[rhs.dtype], spec.bandwidth, ptrs,
+                rhs.data_ptr(), out.data_ptr(), work.data_ptr(), n, m,
+                DEFAULT_THREADS, stream)
+    if rc != 0:
+        raise RuntimeError(f"batch_sweep launch failed: CUDA error {rc}")
+    LAUNCHES[spec.name] = LAUNCHES.get(spec.name, 0) + 1
+    return out
+
+
+def batch_sweep(spec: SweepSpec, diags, rhs: torch.Tensor) -> torch.Tensor:
+    """The batch solve on the kernel for CUDA tensors, on the plain version
+    for CPU tensors; any other device raises."""
+    if any(t.dtype != rhs.dtype for t in diags):
+        raise TypeError(f"batch_sweep: diagonal dtypes "
+                        f"{[t.dtype for t in diags]} and rhs dtype "
+                        f"{rhs.dtype} differ")
+    if rhs.is_cuda:
+        return batch_sweep_cuda(spec, diags, rhs)
+    if rhs.device.type != "cpu":
+        raise ValueError(f"batch_sweep: no kernel for device {rhs.device}")
+    return batch_sweep_plain(spec, diags, rhs)
+
+
+# ---------------------------------------------------------------------------
 # Solver-facing entry points
 # ---------------------------------------------------------------------------
 
-def _prepare(lhs, rhs, storage_dtype):
+def _as_stored(tensors, storage_dtype) -> list:
+    """The operands as the kernels read them: cast to ``storage_dtype``
+    (when given) and contiguous."""
     sdt = canonical_storage_dtype(storage_dtype)
     if sdt is not None:
-        lhs, rhs = lhs.to(sdt), rhs.to(sdt)
-    return lhs.contiguous(), rhs.contiguous()
+        tensors = [t.to(sdt) for t in tensors]
+    return [t.contiguous() for t in tensors]
 
 
 def thomas_constant(f, d: torch.Tensor, *, transposed: bool = False,
@@ -243,8 +373,8 @@ def thomas_constant(f, d: torch.Tensor, *, transposed: bool = False,
     ``storage_dtype="bf16"`` stores the factor and RHS at bf16 (fp32
     accumulation; the solve returns fp32)."""
     spec = find_spec(3, "constant", transposed=transposed)
-    lhs, d = _prepare(stack_tridiag_lhs(f, transposed=transposed), d,
-                      storage_dtype)
+    lhs, d = _as_stored((stack_tridiag_lhs(f, transposed=transposed), d),
+                        storage_dtype)
     return shared_sweep(spec, lhs, d)
 
 
@@ -256,8 +386,28 @@ def penta_constant(f, rhs: torch.Tensor, *, uniform: bool = False,
     ``transposed=True`` solves A^T x = rhs from the SAME stored factor."""
     spec = find_spec(5, "uniform" if uniform else "constant",
                      transposed=transposed)
-    lhs, rhs = _prepare(
-        stack_penta_lhs(f, uniform=uniform, transposed=transposed), rhs,
+    lhs, rhs = _as_stored(
+        (stack_penta_lhs(f, uniform=uniform, transposed=transposed), rhs),
         storage_dtype)
     eps = _uniform_eps_param(f, lhs.dtype) if uniform else None
     return shared_sweep(spec, lhs, rhs, eps)
+
+
+def thomas_batch(a, b, c, d, *, storage_dtype=None) -> torch.Tensor:
+    """Per-system-LHS batched Thomas solve (cuThomasBatch).  a/b/c/d: (N, M),
+    system m's diagonals in column m; the factorisation is fused into the
+    solve.  ``storage_dtype="bf16"`` stores diagonals and RHS at bf16 (fp32
+    accumulation; the solve returns fp32).
+
+    Unlike the JAX package there is no lane or sweep padding (and so no
+    identity padding of the main diagonal): the kernel masks the ragged
+    edge of M itself and walks all N rows."""
+    *diags, d = _as_stored((a, b, c, d), storage_dtype)
+    return batch_sweep(find_spec(3, "batch"), diags, d)
+
+
+def penta_batch(a, b, c, d, e, rhs, *, storage_dtype=None) -> torch.Tensor:
+    """Per-system-LHS batched penta solve (cuPentBatch).  a..e and rhs:
+    (N, M), ``c`` the main diagonal; no padding, as for ``thomas_batch``."""
+    *diags, rhs = _as_stored((a, b, c, d, e, rhs), storage_dtype)
+    return batch_sweep(find_spec(5, "batch"), diags, rhs)

@@ -13,11 +13,12 @@ Counterpart of ``repro.solver``, with the same names:
 ``device="cpu"``.  Backends:
 
   * ``reference`` — plain-torch loops over N from ``repro_torch.core``
-    (the oracle; the only backend of ``batch`` mode for now);
-  * ``cuda``      — the hand-written Hopper sweep kernel on CUDA tensors,
-    its plain-torch version on CPU tensors;
-  * ``auto``      — ``cuda`` for ``constant`` and ``uniform``, ``reference``
-    for ``batch``.
+    (the oracle; the only backend of periodic ``batch`` mode);
+  * ``cuda``      — the hand-written Hopper kernels on CUDA tensors (the
+    shared sweep, and the batch sweep for Dirichlet ``batch`` mode),
+    their plain-torch versions on CPU tensors;
+  * ``auto``      — ``cuda`` for ``constant``, ``uniform`` and Dirichlet
+    ``batch``, ``reference`` for periodic ``batch``.
 
 ``MODES`` is the tuple of storage-mode names.
 """

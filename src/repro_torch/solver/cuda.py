@@ -1,17 +1,27 @@
-"""``cuda`` backend: the hand-written Hopper sweep kernel.
+"""``cuda`` backend: the hand-written Hopper sweep kernels.
 
 Counterpart of ``repro.solver.pallas``.  One thread per system walks all N
-rows of the interleaved (N, M) batch out of device memory, with the
-shared factor staged through shared memory (``kernels/csrc/
-shared_sweep.cu``), so there is no VMEM wall and no tuner: the backend
-serves every constant/uniform system at any N.  On CPU tensors the same
-calls run the kernel's plain version (``kernels.ops``).
+rows of the interleaved (N, M) batch out of device memory, so there is no
+VMEM wall and no tuner: the backend serves every constant/uniform system
+at any N, with the shared factor staged through shared memory
+(``kernels/csrc/shared_sweep.cu``), and every Dirichlet batch system, with
+each system's own diagonals factored inside the solve
+(``kernels/csrc/batch_sweep.cu``).  On CPU tensors the same calls run the
+kernels' plain versions (``kernels.ops``).
 
 Periodic boundaries: the kernel solves the truncated band; the rank-1
 Sherman-Morrison (tridiag) / rank-4 Woodbury (penta) corner corrections
 are plain torch around it — a few O(M) dots, the paper's 2-kernel
 pipeline.  The adjoint runs the kernel's transposed variants on the SAME
 stored factor and transposes the corners from the stored ``zt``/``Zt``.
+
+Batch mode: the stored state is the per-system diagonal copies (the
+reference's tiling, the O((k+1)·N·M) storage of cuThomasBatch).  Rolling
+them turns A^T into another batch system, so the FORWARD batch kernel
+serves the adjoint: the entries the roll wraps across the Dirichlet
+boundary only ever multiply a zero carry.  Periodic batch has no kernel
+here, as it has none in the JAX package: ``auto`` sends it to
+``reference``.
 """
 
 from __future__ import annotations
@@ -21,20 +31,29 @@ import torch
 from ..core import penta as _penta
 from ..core import tridiag as _tridiag
 from ..kernels import ops as _kops
+from . import reference as _ref
 from .registry import register_backend, register_pure_backend
 from .system import BandedSystem
 
-_BATCH_MESSAGE = ("the cuda backend has no per-system LHS (mode='batch') "
-                  "kernel yet: it arrives with the batch slice (ROADMAP "
-                  "Queue 1 item 5); use backend='reference' or 'auto'")
+_PERIODIC_BATCH_MESSAGE = (
+    "the cuda backend has no kernel for periodic per-system-LHS systems "
+    "(mode='batch', periodic=True), and neither has the JAX package's "
+    "pallas backend; use backend='reference' or 'auto'")
 
 
 def build_stored(system: BandedSystem):
     """Factor once into the kernel-facing stored factor: the reference
     factors, with uniform mode kept full-vector (the kernel reads a
-    stacked LHS)."""
-    from .reference import build_stored as _ref_build
-    return _ref_build(system, scalarize_uniform=False)
+    stacked LHS); batch mode tiles the per-system diagonal copies."""
+    if system.mode == "batch" and system.periodic:
+        raise NotImplementedError(_PERIODIC_BATCH_MESSAGE)
+    return _ref.build_stored(system, scalarize_uniform=False)
+
+
+def _batch_sweep(bandwidth: int, diags: tuple, rhs, kw: dict):
+    if bandwidth == 3:
+        return _kops.thomas_batch(*diags, rhs, **kw)
+    return _kops.penta_batch(*diags, rhs, **kw)
 
 
 def _sweep(bandwidth: int, uniform: bool, factor, rhs, transposed: bool,
@@ -48,14 +67,15 @@ def _sweep(bandwidth: int, uniform: bool, factor, rhs, transposed: bool,
 def solve_stored(bandwidth: int, mode: str, periodic: bool, stored,
                  rhs: torch.Tensor, *, storage_dtype=None) -> torch.Tensor:
     """A x = rhs through the kernel, rhs (N,) or (N, M)."""
-    if mode == "batch":
-        raise NotImplementedError(_BATCH_MESSAGE)
     squeeze = rhs.ndim == 1
     if squeeze:
         rhs = rhs[:, None]
     kw = dict(storage_dtype=storage_dtype)
     uniform = mode == "uniform"
-    if not periodic:
+    if mode == "batch":
+        x = _batch_sweep(bandwidth, _ref.batch_diagonals(bandwidth, stored),
+                         rhs, kw)
+    elif not periodic:
         x = _sweep(bandwidth, uniform, stored, rhs, False, kw)
     elif bandwidth == 3:
         pf = stored
@@ -76,15 +96,18 @@ def transpose_solve_stored(bandwidth: int, mode: str, periodic: bool, stored,
                            rhs: torch.Tensor, *,
                            storage_dtype=None) -> torch.Tensor:
     """A^T x = rhs through the kernel's transposed variants, from the SAME
-    stored factor; periodic corners transpose from the stored aux."""
-    if mode == "batch":
-        raise NotImplementedError(_BATCH_MESSAGE)
+    stored factor; periodic corners transpose from the stored aux.  Batch
+    mode runs the forward batch kernel on the rolled diagonals."""
     squeeze = rhs.ndim == 1
     if squeeze:
         rhs = rhs[:, None]
     kw = dict(storage_dtype=storage_dtype)
     uniform = mode == "uniform"
-    if not periodic:
+    if mode == "batch":
+        x = _batch_sweep(bandwidth,
+                         _ref.transposed_batch_diagonals(bandwidth, stored),
+                         rhs, kw)
+    elif not periodic:
         x = _sweep(bandwidth, uniform, stored, rhs, True, kw)
     else:
         y = _sweep(bandwidth, uniform, stored.factor, rhs, True, kw)
@@ -96,8 +119,6 @@ def transpose_solve_stored(bandwidth: int, mode: str, periodic: bool, stored,
 # -- the pure-function contract (repro_torch.solver.functional) --------------
 
 def _pure_build(system: BandedSystem, *, storage_dtype=None):
-    if system.mode == "batch":
-        raise NotImplementedError(_BATCH_MESSAGE)
     sdt = _kops.canonical_storage_dtype(storage_dtype)
     return build_stored(system), {"storage_dtype": sdt}
 

@@ -15,10 +15,12 @@ Counterpart of ``repro.solver.functional``:
     ``torch.autograd.Function`` whose backward solves the TRANSPOSED
     system on the same stored factor.
 
-``backend="auto"`` picks ``cuda`` (the hand-written sweep kernel) for the
-shared-LHS modes at any N, and ``reference`` for ``batch`` mode until the
-batch slice ports its kernels.  The ``cuda`` backend runs its kernel on
-CUDA tensors and the kernel's plain version on CPU tensors.
+``backend="auto"`` picks ``cuda`` wherever the JAX package picks
+``pallas``: the shared-LHS modes at any N (the shared sweep kernel) and
+Dirichlet ``batch`` mode (the batch sweep kernel, factorisation fused into
+the solve).  Periodic ``batch`` mode has no kernel in either package and
+goes to ``reference``.  The ``cuda`` backend runs its kernels on CUDA
+tensors and their plain versions on CPU tensors.
 """
 
 from __future__ import annotations
@@ -94,10 +96,13 @@ class Factorization:
 
 
 def select_backend(system: BandedSystem) -> str:
-    """The ``backend="auto"`` policy: the CUDA sweep serves every shared-LHS
-    system at any N (Hopper has no VMEM wall); ``batch`` mode stays on the
-    reference until the batch slice."""
-    return "reference" if system.mode == "batch" else "cuda"
+    """The ``backend="auto"`` policy: the CUDA kernels serve every
+    shared-LHS system and every Dirichlet batch system at any N (Hopper
+    has no VMEM wall); periodic batch has no kernel and stays on the
+    reference."""
+    if system.mode == "batch" and system.periodic:
+        return "reference"
+    return "cuda"
 
 
 def resolve_backend_name(system: BandedSystem, backend: str) -> str:

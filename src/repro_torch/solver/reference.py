@@ -1,8 +1,8 @@
 """``reference`` backend: the plain-torch sweeps of ``repro_torch.core``.
 
 Counterpart of ``repro.solver.reference``: the oracle the other backend
-is tested against, and the only backend of ``batch`` mode until the batch
-slice.  Module-level functions carry the logic:
+is tested against, and the only backend of periodic ``batch`` mode.
+Module-level functions carry the logic:
 
   * ``build_stored(system)``   — factor once (constant/uniform) or tile the
     per-system LHS copies (batch);
@@ -88,6 +88,25 @@ def _expand_if_scalarized(bandwidth: int, periodic: bool, n: int, stored):
     return stored
 
 
+def batch_diagonals(bandwidth: int, stored: dict) -> tuple:
+    """The per-system (N, M) diagonal copies of a batch-mode stored state,
+    sub-most first."""
+    names = ("a", "b", "c") if bandwidth == 3 else ("a", "b", "c", "d", "e")
+    return tuple(stored[k] for k in names)
+
+
+def transposed_batch_diagonals(bandwidth: int, stored: dict) -> tuple:
+    """The per-system diagonals of A^T: sub-diagonal k of A^T is
+    super-diagonal k of A shifted down k rows.  The entries ``torch.roll``
+    wraps across a Dirichlet boundary only ever multiply a zero carry of
+    the sweeps, so they are inert."""
+    s = stored
+    if bandwidth == 3:
+        return (torch.roll(s["c"], 1, 0), s["b"], torch.roll(s["a"], -1, 0))
+    return (torch.roll(s["e"], 2, 0), torch.roll(s["d"], 1, 0), s["c"],
+            torch.roll(s["b"], -1, 0), torch.roll(s["a"], -2, 0))
+
+
 def _per_column(one, diags: tuple, rhs: torch.Tensor) -> torch.Tensor:
     """Run ``one(*diagonals, rhs)`` on each system of a batch-mode stack
     (the periodic factor couples a system's corners, so it factors alone)."""
@@ -119,9 +138,8 @@ def solve_stored(bandwidth: int, mode: str, periodic: bool, n: int, stored,
                  rhs: torch.Tensor, *, method: str = "scan") -> torch.Tensor:
     """Solve given (meta, stored factor, rhs). rhs: (N,) or (N, M)."""
     if mode == "batch":
-        names = ("a", "b", "c") if bandwidth == 3 else ("a", "b", "c", "d", "e")
         return _batch_solve(bandwidth, periodic,
-                            tuple(stored[k] for k in names), rhs, method)
+                            batch_diagonals(bandwidth, stored), rhs, method)
     f = _expand_if_scalarized(bandwidth, periodic, n, stored)
     if bandwidth == 3:
         if periodic:
@@ -139,16 +157,11 @@ def transpose_solve_stored(bandwidth: int, mode: str, periodic: bool, n: int,
 
     constant/uniform: A = L·U means A^T = U^T·L^T from the forward's
     vectors.  batch mode has no stored factor, so the transposed diagonals
-    are the per-system copies rolled (the factor routines zero the entries
-    rolled across a Dirichlet boundary)."""
+    are the per-system copies rolled (``transposed_batch_diagonals``)."""
     if mode == "batch":
-        s = stored
-        if bandwidth == 3:
-            diags = (torch.roll(s["c"], 1, 0), s["b"], torch.roll(s["a"], -1, 0))
-        else:
-            diags = (torch.roll(s["e"], 2, 0), torch.roll(s["d"], 1, 0), s["c"],
-                     torch.roll(s["b"], -1, 0), torch.roll(s["a"], -2, 0))
-        return _batch_solve(bandwidth, periodic, diags, rhs, method)
+        return _batch_solve(bandwidth, periodic,
+                            transposed_batch_diagonals(bandwidth, stored),
+                            rhs, method)
     f = _expand_if_scalarized(bandwidth, periodic, n, stored)
     if bandwidth == 3:
         if periodic:

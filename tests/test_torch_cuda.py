@@ -1,4 +1,8 @@
-"""The hand-written CUDA kernel on the card, against its plain version.
+"""The hand-written CUDA kernels on the card, against their plain versions.
+
+``shared_sweep.cu`` (one shared factor) and ``batch_sweep.cu`` (per-system
+diagonals, factorisation fused into the solve; tested with distinct
+diagonals in every system).
 
 Every test here is marked ``cuda`` and needs a CUDA device; without one
 they skip.  The file imports torch, numpy and ``repro_torch`` only, so it
@@ -27,7 +31,9 @@ from repro_torch.solver import BandedSystem, factorize, solve
 pytestmark = pytest.mark.cuda
 
 N, M = 37, 1000
-SPECS = sorted(engine.REGISTRY)
+SPECS = sorted(n for n, s in engine.REGISTRY.items() if s.layout == "shared")
+BATCH_SPECS = sorted(n for n, s in engine.REGISTRY.items()
+                     if s.layout == "batch")
 STORAGES = {"float32": 1e-5, "float64": 1e-12, "bf16": 1e-5}
 CONFIGS = [(bw, mode, periodic) for bw in (3, 5)
            for mode in ("constant", "uniform") for periodic in (False, True)]
@@ -123,6 +129,76 @@ def test_solver_on_card_matches_cpu(cfg, cuda_device):
     x.pow(2).sum().backward()
     torch.cuda.synchronize()
     assert sum(ops.LAUNCHES.values()) == before + 2   # forward + transposed
+    r_host = rhs.clone().requires_grad_()
+    want = solve(factorize(host, backend="cuda"), r_host)
+    want.pow(2).sum().backward()
+    assert _rel(x, want) <= 1e-5
+    assert _rel(r_card.grad, r_host.grad) <= 1e-5
+
+
+def _batch_operands(bw: int, n: int, m: int, dtype, seed: int = 0) -> list:
+    """Distinct, diagonally dominant per-system diagonals and an RHS, all
+    (n, m), on the card."""
+    rng = np.random.default_rng(seed + bw)
+    if bw == 3:
+        arrays = [rng.uniform(-1, 1, (n, m)), 4 + rng.uniform(0, 1, (n, m)),
+                  rng.uniform(-1, 1, (n, m))]
+    else:
+        arrays = [rng.uniform(-0.5, 0.5, (n, m)) for _ in range(5)]
+        arrays[2] = arrays[2] + 6
+    arrays.append(rng.normal(size=(n, m)))
+    return [torch.from_numpy(x).to("cuda", dtype) for x in arrays]
+
+
+_TORCH_STORAGE = {"float32": torch.float32, "float64": torch.float64,
+                  "bf16": torch.bfloat16}
+
+
+@pytest.mark.parametrize("storage", sorted(STORAGES))
+@pytest.mark.parametrize("name", BATCH_SPECS)
+def test_batch_kernel_matches_plain(name, storage, cuda_device):
+    spec = engine.REGISTRY[name]
+    *diags, rhs = _batch_operands(spec.bandwidth, N, M,
+                                  _TORCH_STORAGE[storage])
+    want = ops.batch_sweep_plain(spec, diags, rhs)
+    before = ops.LAUNCHES.get(name, 0)
+    got = ops.batch_sweep(spec, diags, rhs)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[name] == before + 1
+    assert got.is_cuda and got.dtype == want.dtype
+    assert _rel(got, want) <= STORAGES[storage]
+
+
+@pytest.mark.parametrize("n", (1, 2, 37, 600))
+@pytest.mark.parametrize("name", BATCH_SPECS)
+def test_batch_kernel_ragged_m_and_edge_n(name, n, cuda_device):
+    spec = engine.REGISTRY[name]
+    *diags, rhs = _batch_operands(spec.bandwidth, n, 333, torch.float32,
+                                  seed=n)
+    want = ops.batch_sweep_plain(spec, diags, rhs)
+    got = ops.batch_sweep_cuda(spec, diags, rhs)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("bw", (3, 5))
+def test_batch_solver_rolled_adjoint_on_card_matches_cpu(bw, cuda_device):
+    ctor = BandedSystem.tridiag if bw == 3 else BandedSystem.penta
+    diags = _diags(bw, False, dtype=np.float32)
+    m = 301
+    card = ctor(*diags, n=N, mode="batch", batch=m)
+    host = ctor(*diags, n=N, mode="batch", batch=m, device="cpu")
+    rhs = torch.from_numpy(
+        np.random.default_rng(6).normal(size=(N, m)).astype(np.float32))
+    fact = factorize(card, backend="auto")
+    assert fact.backend == "cuda"
+    name = "thomas_batch" if bw == 3 else "penta_batch"
+    before = ops.LAUNCHES.get(name, 0)
+    r_card = rhs.to(cuda_device).requires_grad_()
+    x = solve(fact, r_card)
+    x.pow(2).sum().backward()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[name] == before + 2   # forward + rolled adjoint
     r_host = rhs.clone().requires_grad_()
     want = solve(factorize(host, backend="cuda"), r_host)
     want.pow(2).sum().backward()

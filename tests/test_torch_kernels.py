@@ -9,6 +9,9 @@
     JAX x64 switched on for that test only) and bf16 storage (≤ 1e-2
     relative, the JAX suite's bar for bf16 storage).
 
+The batch layout (``thomas_batch`` / ``penta_batch``) is held against JAX
+in ``tests/test_torch_batch.py``.
+
 The kernel itself is held against this plain version on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
@@ -33,7 +36,7 @@ from repro_torch.kernels import engine as tengine
 from repro_torch.kernels import ops as tops
 
 N, M = 37, 130
-SPECS = sorted(tengine.REGISTRY)
+SPECS = sorted(n for n, s in tengine.REGISTRY.items() if s.layout == "shared")
 STORAGES = {"float32": 1e-5, "float64": 1e-12, "bf16": 1e-2}
 
 
@@ -118,8 +121,10 @@ def test_spec_structure_and_traffic_match_jax(name):
 
 def test_find_spec_routes_and_refuses():
     assert tengine.find_spec(3, "uniform").name == "thomas_constant"
-    with pytest.raises(NotImplementedError, match="batch slice"):
-        tengine.find_spec(3, "batch")
+    assert tengine.find_spec(3, "batch").name == "thomas_batch"
+    assert tengine.find_spec(5, "batch") == tengine.REGISTRY["penta_batch"]
+    with pytest.raises(ValueError, match="rolling"):
+        tengine.find_spec(5, "batch", transposed=True)
     with pytest.raises(ValueError):
         tengine.find_spec(7, "constant")
     with pytest.raises(ValueError):

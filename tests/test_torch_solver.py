@@ -180,7 +180,9 @@ def _meta_dict(meta):
 
 CARRY = [(bw, mode, periodic, jb) for bw, mode, periodic in CONFIGS
          for jb in ("pallas", "reference")] + [
-    (3, "batch", False, "reference"), (5, "batch", False, "reference")]
+    (3, "batch", False, "reference"), (5, "batch", False, "reference"),
+    (3, "batch", False, "pallas"), (5, "batch", False, "pallas"),
+    (3, "batch", True, "reference"), (5, "batch", True, "reference")]
 
 
 @pytest.mark.parametrize("case", CARRY,
@@ -197,7 +199,9 @@ def test_jax_factorization_carried_over(case):
         _stored_np(jfact), _meta_dict(jfact.meta), device="cpu",
         diagonals=[np.asarray(d) for d in jfact.diagonals])
     expected = {"pallas": "cuda", "reference": "reference"}[jax_backend]
-    assert fact.backend == ("reference" if mode == "batch" else expected)
+    # a periodic batch factorization has no kernel and stays reference
+    assert fact.backend == ("reference" if mode == "batch" and periodic
+                            else expected)
     assert _rel(solve(fact, torch.from_numpy(rhs)), want) <= TOL
     assert _rel(transpose_solve(fact, torch.from_numpy(rhs)), want_t) <= TOL
 
@@ -227,13 +231,18 @@ def test_readme_storage_saving():
     assert plan(system, backend="cuda").storage_bytes()["lhs_bytes"] > 0
 
 
-@pytest.mark.parametrize("bw,periodic", ((3, True), (5, False)))
+@pytest.mark.parametrize("bw,periodic", ((3, True), (5, False), (3, False),
+                                        (5, True)))
 def test_batch_mode_routes_to_reference_and_cuda_refuses(bw, periodic):
+    """``auto`` sends Dirichlet batch to the cuda backend, as JAX sends it to
+    pallas; periodic batch has no kernel in either package, so ``auto``
+    sends it to reference and an explicit ``backend="cuda"`` refuses it."""
     system = _port_system(bw, "batch", periodic, batch=M)
-    with pytest.raises(NotImplementedError, match="batch slice"):
-        factorize(system, backend="cuda")
+    if periodic:
+        with pytest.raises(NotImplementedError, match="periodic"):
+            factorize(system, backend="cuda")
     fact = factorize(system, backend="auto")
-    assert fact.backend == "reference"
+    assert fact.backend == ("reference" if periodic else "cuda")
     jfact = jsolver.factorize(_jax_system(bw, "batch", periodic, batch=M),
                               backend="reference")
     want = np.asarray(jsolver.solve(jfact, jnp.asarray(_rhs())))
