@@ -10,18 +10,36 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
   2. build every kernel from the checkout's sources (``build/repro_torch/``);
   3. each kernel against its plain-torch version on the card, for every
      sweep variant and storage type, at main-path and edge shapes (the
-     batch sweep with distinct diagonals in every system);
+     batch sweep with distinct diagonals in every system).  The
+     gated-recurrence kernel (4 specs × fp32, fp64, bf16, fp16) and both
+     fused CN steps (fp32, fp64) are held the same way, with distinct
+     operands in every column, at N ∈ {1, 2, 3, 600}, a ragged M and one
+     full-size grid; the fused steps on operands drawn at random, against
+     the largest term the step forms;
   4. the main path at full size through ``repro_torch.solver`` (factorize
      with ``backend="auto"``, solve, and the adjoint through
      ``loss.backward()``), with the launch counts read around each case and
      the residual ``‖A x − d‖ / ‖d‖`` checked: shared-LHS cases (a)–(c)
      and per-system-LHS (batch) cases (d)–(e);
-  5. kernel, plain-version and library times at the main-path shapes,
+  5. the recurrences and the PDE steps through their public entry points,
+     each with its launch counts: (f) the RG-LRU scan at recurrentgemma-9b's
+     width, (g) the SSD inter-chunk scan at mamba2-130m's, (h) an order-2
+     reverse recurrence with an h0 pair, each forward and backward against
+     an fp64 plain scan and its autograd; (i) ``DiffusionCN(backend=
+     "fused")`` against the ``cuda`` pipeline and the analytic decay, (j)
+     ``fused_cn_penta_step`` against ``HyperdiffusionCN(backend="cuda")``,
+     (k) ``ADI2D`` against the analytic decay;
+  6. kernel, plain-version and library times at the main-path shapes,
      beside the least time the card could take; each batch row also
      times the shared sweep on the same operator and shape, the paper's
      comparison, and holds the batch sweep to its plain version at the
-     full grid on distinct diagonals in every system;
-  6. one ``{"kernels": [...]}`` line.
+     full grid on distinct diagonals in every system; each recurrence row
+     also times the public entry point on the case's own operands (the
+     SSD gate broadcast), forward and forward + backward, beside the
+     function's own byte floor; each fused row also times one step of the
+     ``cuda`` pipeline at the same shape;
+  7. one summary line (the run's seconds and peak device memory) and one
+     ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; a machine without CUDA fails, it never runs on the CPU.
@@ -51,6 +69,15 @@ _CARDS = {
 # storage both read the same bf16 operands and compute in fp32, so they are
 # held to the fp32 bar.
 _TOLERANCE = {"float32": 1e-5, "float64": 1e-12, "bf16": 1e-5}
+# The recurrence kernel stores h at the operand type: with bf16 or fp16
+# operands both carry fp32, but a one-ulp difference in a carry can flip
+# the rounding of h: about two ulps of the storage type (bf16's is the bar
+# of tests/test_recurrence.py).
+_RECUR_TOLERANCE = {"float32": 1e-5, "float64": 1e-12, "bf16": 2e-2,
+                    "float16": 2e-3}
+# edge shapes (ragged M) and the full-size grid of the new kernels
+_RECUR_SHAPES = ((1, 333), (2, 333), (3, 333), (600, 1000), (4096, 65536))
+_FUSED_SHAPES = ((1, 333), (2, 333), (3, 333), (600, 1000), (512, 1 << 20))
 
 
 class SmokeFailure(Exception):
@@ -158,11 +185,60 @@ def random_batch_operands(spec, n: int, m: int, storage, gen):
     return [d.to(storage) for d in diags], rhs.to(storage)
 
 
+def random_recur_operands(order: int, n: int, m: int, storage, gen):
+    """Distinct gates in every column, scaled so the recurrence stays
+    bounded (|p| < 0.9; |s| < 0.6, |t| < 0.3), and q, on the card."""
+    import torch
+
+    def u(lo, hi):
+        return lo + (hi - lo) * torch.rand(n, m, generator=gen, device="cuda",
+                                           dtype=torch.float64)
+    gates = [u(-0.9, 0.9)] if order == 1 else [u(-0.6, 0.6), u(-0.3, 0.3)]
+    q = torch.randn(n, m, generator=gen, device="cuda", dtype=torch.float64)
+    return [g.to(storage) for g in gates], q.to(storage)
+
+
+def random_fused_operands(kind: str, n: int, dtype, gen) -> list:
+    """Factor rows, z / Z, Minv and parameters drawn uniformly in [-1, 1],
+    with no structure of a CN factor, on the card."""
+    import torch
+
+    def u(*shape):
+        return 2 * torch.rand(*shape, generator=gen, device="cuda",
+                              dtype=dtype) - 1
+    zeros = torch.zeros(5, device="cuda", dtype=dtype)
+    if kind == "tridiag":
+        return [u(3, n), u(n), torch.cat([u(5), zeros[:3]])]
+    return [u(5, n), u(n, 4), u(4, 4), torch.cat([u(11), zeros])]
+
+
+def fused_term_scale(kind: str, plain, operands, c) -> float:
+    """The largest term a fused step forms: the stencil's terms, the
+    forward-sweep values, y after the backward sweep, and x.  The kernel
+    and its plain version each round every term, so their difference is
+    held against this: on random operands x = y − (correction) can cancel
+    to far less than y, and max|x| alone would measure that cancellation,
+    not the kernel."""
+    import torch
+    lhs, z, *rest = operands
+    back = 2 if kind == "tridiag" else 3    # rows of the backward sweep
+    fwd_only = torch.cat([lhs[:back], torch.zeros_like(lhs[back:])])
+    terms = [plain(*operands, c),
+             plain(lhs, torch.zeros_like(z), *rest, c),        # y
+             plain(fwd_only, torch.zeros_like(z), *rest, c)]   # forward
+    weights = rest[-1][:3 if kind == "tridiag" else 5]
+    return max([t.abs().max().item() for t in terms]
+               + [(c.abs().max() * weights.abs().max()).item()])
+
+
 def ops_per_row(spec) -> int:
     """Arithmetic operations per row and system, read off each kernel's
     source, a division counted as one: the shared sweep does 2 per carry
     term in each pass plus the scale; the batch sweep's fused forward pass
-    does 7 (tridiag) or 16 (penta), its backward 2 or 4."""
+    does 7 (tridiag) or 16 (penta), its backward 2 or 4; the recurrence
+    2 per carry term."""
+    if spec.layout == "recurrence":
+        return 2 * spec.order
     if spec.layout == "batch":
         return 9 if spec.order == 1 else 20
     return 4 * spec.order + 1
@@ -174,29 +250,46 @@ def ops_per_row(spec) -> int:
 
 def phase_kernel_vs_plain() -> None:
     import torch
-    from repro_torch.kernels import engine, ops
+    from repro_torch.kernels import engine, fused_cn, ops
 
     storages = {"float32": (torch.float32, torch.float32),
                 "float64": (torch.float64, torch.float64),
-                "bf16": (torch.float32, torch.bfloat16)}
+                "bf16": (torch.float32, torch.bfloat16),
+                "float16": (torch.float32, torch.float16)}
     shapes = ((512, 65536), (16384, 4096), (1, 1), (2, 3), (3, 130),
               (200, 1000))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     factors, worst = {}, {}
 
-    def compare(name, label, n, m, got, want):
+    def compare(name, label, n, m, got, want, tol=None, scale=None):
+        """max|got − want| ≤ tol · scale (default: max|want|)."""
         torch.cuda.synchronize()
+        tol = _TOLERANCE[label] if tol is None else tol
         check(got.dtype == want.dtype and got.shape == want.shape,
               f"{name}/{label} N={n} M={m}: dtype or shape differs")
-        err = rel_err(got, want)
-        check(err <= _TOLERANCE[label],
-              f"{name}/{label} N={n} M={m}: kernel vs plain "
-              f"{err:.3e} > {_TOLERANCE[label]}")
+        if scale is None:
+            err = rel_err(got, want)
+        else:
+            err = (got - want).abs().max().item() / scale
+        check(err <= tol, f"{name}/{label} N={n} M={m}: kernel vs plain "
+                          f"{err:.3e} > {tol}")
         key = f"{name}/{label}"
         worst[key] = max(worst.get(key, 0.0), err)
 
     for name, spec in engine.REGISTRY.items():
         for label, (dtype, storage) in storages.items():
+            if label == "float16" and spec.layout != "recurrence":
+                continue   # only the recurrence kernel stores fp16
+            if spec.layout == "recurrence":
+                for n, m in _RECUR_SHAPES:
+                    gates, q = random_recur_operands(spec.order, n, m,
+                                                     storage, gen)
+                    compare(name, label, n, m,
+                            ops.recurrence_cuda(spec, gates, q),
+                            ops.recurrence_plain(spec, gates, q),
+                            _RECUR_TOLERANCE[label])
+                    del gates, q
+                continue
             for n, m in shapes:
                 if spec.layout == "batch":
                     diags, rhs = random_batch_operands(spec, n, m, storage,
@@ -219,8 +312,29 @@ def phase_kernel_vs_plain() -> None:
                         ops.shared_sweep_cuda(spec, lhs, rhs, eps),
                         ops.shared_sweep_plain(spec, lhs, rhs, eps))
         torch.cuda.empty_cache()
+    for kind in ("tridiag", "penta"):
+        name = f"fused_cn_{kind}"
+        kernel = getattr(fused_cn, f"{name}_cuda")
+        plain = getattr(fused_cn, f"{name}_plain")
+        for label in ("float32", "float64"):
+            dtype = getattr(torch, label)
+            for n, m in _FUSED_SHAPES:
+                if kind == "penta" and n < 2:
+                    continue   # the 5-point stencil wraps by two rows
+                operands = random_fused_operands(kind, n, dtype, gen)
+                c = torch.randn(n, m, generator=gen, device="cuda",
+                                dtype=dtype)
+                compare(name, label, n, m, kernel(*operands, c),
+                        plain(*operands, c), scale=fused_term_scale(
+                            kind, plain, operands, c))
+                del operands, c
+            torch.cuda.empty_cache()
     emit({"phase": "kernel_vs_plain", "shapes": [list(s) for s in shapes],
-          "tolerance": _TOLERANCE, "max_rel_err": worst})
+          "recurrence_shapes": [list(s) for s in _RECUR_SHAPES],
+          "fused_shapes": [list(s) for s in _FUSED_SHAPES],
+          "tolerance": _TOLERANCE, "recurrence_tolerance": _RECUR_TOLERANCE,
+          "fused_measure": "max|kernel - plain| / the largest term formed",
+          "max_rel_err": worst})
 
 
 def banded_matvec(system, x):
@@ -349,17 +463,251 @@ def phase_main_path() -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# the gated recurrences and the PDE steps
+# ---------------------------------------------------------------------------
+
+SEQ = 4096          # tokens per sequence in (f) and (g)
+RGLRU_WIDTH = 4096  # rnn_width, src/repro/configs/recurrentgemma_9b.py
+RGLRU_BATCH = 16
+# mamba2-130m, src/repro/configs/mamba2_130m.py: d_model 768, expand 2,
+# head_dim 64 -> 24 heads; ssm_state 128; SSD chunk 64
+SSD_HEADS, SSD_HEAD_DIM, SSD_STATE, SSD_CHUNK, SSD_BATCH = 24, 64, 128, 64, 8
+PDE_N, PDE_M, PDE_STEPS, ADI_N, ADI_B, ADI_STEPS = 512, 1 << 20, 10, 1024, \
+    64, 5
+
+
+def recurrence_cases(gen) -> dict:
+    """(title, order, reverse, make) by case; ``make()`` returns the fp32
+    leaves (gates, q and the seeds) on the card."""
+    import torch
+
+    def rglru():
+        # per-token gates a in (0, 1); q = sqrt(1 - a^2) x, RG-LRU's input
+        # normalisation, so h stays of unit scale
+        shape = (SEQ, RGLRU_BATCH, RGLRU_WIDTH)
+        a = torch.rand(shape, generator=gen, device="cuda")
+        x = torch.randn(shape, generator=gen, device="cuda")
+        return [a, torch.sqrt(1 - a * a) * x]
+
+    def ssd():
+        # the per-chunk decay exp(cumulative log a) in (0, 1), broadcast
+        # over (head_dim, state): gate (nc, B, H, 1, 1)
+        nc = SEQ // SSD_CHUNK
+        p = torch.rand((nc, SSD_BATCH, SSD_HEADS, 1, 1), generator=gen,
+                       device="cuda")
+        q = torch.randn((nc, SSD_BATCH, SSD_HEADS, SSD_HEAD_DIM, SSD_STATE),
+                        generator=gen, device="cuda")
+        return [p, q]
+
+    def order2():
+        n, m = SEQ, 65536
+        s = 1.2 * torch.rand(n, m, generator=gen, device="cuda") - 0.6
+        t = 0.6 * torch.rand(n, m, generator=gen, device="cuda") - 0.3
+        u = torch.randn(n, m, generator=gen, device="cuda")
+        h1, h2 = (torch.randn(m, generator=gen, device="cuda")
+                  for _ in range(2))
+        return [s, t, u, h1, h2]
+
+    return {
+        "f": ("RG-LRU scan, recurrentgemma-9b width (S 4096 x B 16 x 4096)",
+              1, False, rglru),
+        "g": ("SSD inter-chunk scan, mamba2-130m (64 chunks x B 8 x 24 "
+              "heads x 64 x 128)", 1, False, ssd),
+        "h": ("order 2, reverse, with an h0 pair (4096 x 65536)", 2, True,
+              order2),
+    }
+
+
+def _recur_call(order: int, reverse: bool, leaves: list, method: str):
+    from repro_torch.core.recurrence import (linear_recurrence,
+                                             linear_recurrence2)
+    if order == 1:
+        return linear_recurrence(*leaves, reverse=reverse, method=method)
+    s, t, u, h1, h2 = leaves
+    return linear_recurrence2(s, t, u, (h1, h2), reverse=reverse,
+                              method=method)
+
+
+def phase_recurrences() -> dict:
+    """(f)–(h): counts to 0, ``method="auto"`` forward and
+    ``loss.backward()`` with loss = ½‖h‖², counts read.  Then h and every
+    gradient are held against an fp64 plain scan of the same leaves and
+    autograd through it (no hand-written backward)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    launches = {}
+    for key, (title, order, reverse, make) in recurrence_cases(gen).items():
+        leaves = [t.requires_grad_() for t in make()]
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        h = _recur_call(order, reverse, leaves, "auto")
+        (0.5 * (h * h).sum()).backward()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = dict(ops.LAUNCHES)
+        suffix = f"recur{order}"
+        want = {suffix: 1, suffix + "_rev": 1}
+        check(got == want, f"({key}) launches {got}, expected {want}")
+        check(h.shape == leaves[order].shape
+              and torch.isfinite(h).all().item(),
+              f"({key}) h is not finite of the operand's shape")
+        grads = [t.grad for t in leaves]
+        check(grads[0].shape == leaves[0].shape,
+              f"({key}) the gate's gradient has shape "
+              f"{tuple(grads[0].shape)}, not the gate's")
+        h = h.detach()
+        for t in leaves:
+            t.grad = None
+        ref = [t.detach().double().requires_grad_() for t in leaves]
+        del leaves
+        h64 = _recur_call(order, reverse, ref, "scan")
+        (0.5 * (h64 * h64).sum()).backward()
+        h_err = rel_err(h, h64.detach())
+        del h, h64
+        check(h_err <= 1e-5, f"({key}) h vs fp64 plain scan {h_err:.3e}")
+        grad_err = [rel_err(g, r.grad) for g, r in zip(grads, ref)]
+        check(max(grad_err) <= 1e-5,
+              f"({key}) gradients vs fp64 plain adjoint {grad_err}")
+        emit({"phase": "main_path", "case": key, "title": title,
+              "launches": got, "seconds": seconds, "h_rel_err": h_err,
+              "grad_rel_err": grad_err})
+        launches[key] = sum(got.values())
+        del grads, ref
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _allclose(got, want, rtol: float, atol: float) -> float:
+    """The worst ``|got − want| / (atol + rtol·|want|)``: ≤ 1 passes."""
+    return ((got.double() - want.double()).abs()
+            / (atol + rtol * want.double().abs())).max().item()
+
+
+def phase_pde() -> dict:
+    """(i)–(k) through ``repro_torch.pde`` and the fused steps; counts
+    to 0 before each case and read after it."""
+    import math
+
+    import torch
+    from repro_torch.core import penta
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_cn import fused_cn_penta_step
+    from repro_torch.pde import ADI2D, DiffusionCN, HyperdiffusionCN
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    n, m = PDE_N, PDE_M
+    x = torch.arange(n, device="cuda", dtype=torch.float64) / n
+    wave = torch.sin(2 * math.pi * x)[:, None]
+    launches = {}
+
+    def run_case(key, title, body, want, kernel):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        checks = body()
+        torch.cuda.synchronize()
+        got = dict(ops.LAUNCHES)
+        check(got == want, f"({key}) launches {got}, expected {want}")
+        for name, ratio in checks.items():
+            check(ratio <= 1.0, f"({key}) {name}: worst |Δ| is {ratio:.3f} "
+                                f"of its bar")
+        emit({"phase": "main_path", "case": key, "title": title,
+              "launches": got, "seconds": time.perf_counter() - t0,
+              "worst_over_bar": checks})
+        launches[key] = got[kernel]
+        torch.cuda.empty_cache()
+
+    def diffusion():
+        dt = 0.8 / n ** 2          # sigma = 0.4, as in case (a)
+        fused = DiffusionCN(n=n, dt=dt, backend="fused")
+        noisy = (wave + 0.3 * torch.randn(n, m, generator=gen, device="cuda",
+                                          dtype=torch.float64)).float()
+        out_f = fused.run(noisy, PDE_STEPS)
+        out_c = DiffusionCN(n=n, dt=dt, backend="cuda").run(noisy, PDE_STEPS)
+        finite = torch.isfinite(out_f).all().item() and out_f.shape == (n, m)
+        check(finite, "(i) the fused trajectory is not finite of shape "
+                      f"{(n, m)}")
+        # the JAX suite's bars: 3e-4/3e-5 between backends, 2e-3/2e-4
+        # against the analytic decay (tests/test_pde.py)
+        vs_pipeline = _allclose(out_f, out_c, 3e-4, 3e-5)
+        del noisy, out_f, out_c
+        clean = wave.float().expand(n, m).contiguous()
+        out_a = fused.run(clean, PDE_STEPS)
+        want = torch.from_numpy(DiffusionCN.analytic(
+            x.cpu().numpy(), dt * PDE_STEPS)).to("cuda")[:, None]
+        return {"vs_cuda_pipeline": vs_pipeline,
+                "vs_analytic": _allclose(out_a, want.expand(n, m), 2e-3,
+                                         2e-4)}
+
+    def hyperdiffusion():
+        dt = 0.8 / n ** 4          # sigma = 0.4
+        hyper = HyperdiffusionCN(n=n, dt=dt, backend="cuda", mode="uniform")
+        pf = penta.periodic_penta_factor(*(
+            torch.full((n,), v, device="cuda") for v in hyper.coefficients()))
+        noisy = (wave + 0.3 * torch.randn(n, m, generator=gen, device="cuda",
+                                          dtype=torch.float64)).float()
+        out_f = noisy
+        for _ in range(PDE_STEPS):
+            out_f = fused_cn_penta_step(pf, hyper.sigma, out_f)
+        out_c = hyper.run(noisy, PDE_STEPS)
+        check(torch.isfinite(out_f).all().item(),
+              "(j) the fused trajectory is not finite")
+        return {"vs_cuda_pipeline": _allclose(out_f, out_c, 3e-4, 3e-5)}
+
+    def adi():
+        dt = 0.8 / ADI_N ** 2     # sx = sy = 0.4
+        model = ADI2D(nx=ADI_N, ny=ADI_N, dt=dt, backend="auto")
+        g = torch.arange(ADI_N, device="cuda", dtype=torch.float64) / ADI_N
+        f0 = (torch.sin(2 * math.pi * g)[:, None]
+              * torch.sin(2 * math.pi * g)[None, :])
+        out = model.run(f0.float()[..., None].expand(ADI_N, ADI_N, ADI_B)
+                        .contiguous(), ADI_STEPS)
+        gx = g.cpu().numpy()
+        want = torch.from_numpy(ADI2D.analytic(
+            gx[:, None], gx[None, :], dt * ADI_STEPS)).to("cuda")[..., None]
+        check(out.shape == (ADI_N, ADI_N, ADI_B)
+              and torch.isfinite(out).all().item(),
+              "(k) the ADI field is not finite of its shape")
+        # the JAX suite's bar for ADI against the analytic decay
+        return {"vs_analytic": _allclose(out, want.expand_as(out), 5e-3,
+                                         5e-4)}
+
+    run_case("i", f"DiffusionCN fused, {PDE_STEPS} steps on {n} x {m}",
+             diffusion, {"fused_cn_tridiag": 2 * PDE_STEPS,
+                         "thomas_constant": PDE_STEPS},
+             "fused_cn_tridiag")
+    run_case("j", f"fused_cn_penta_step, {PDE_STEPS} steps on {n} x {m}",
+             hyperdiffusion, {"fused_cn_penta": PDE_STEPS,
+                              "penta_uniform": PDE_STEPS},
+             "fused_cn_penta")
+    run_case("k", f"ADI2D auto, {ADI_STEPS} steps on {ADI_N} x {ADI_N} x "
+                  f"{ADI_B}", adi, {"thomas_constant": 2 * ADI_STEPS},
+             "thomas_constant")
+    return launches
+
+
+def _bound(nbytes: float, ops_count: float, card: str) -> tuple:
+    """(bound_ms, bound_by): bytes over the memory rate against fp32
+    operations over the card's non-tensor-core rate."""
+    rate, flops = card_rates(card)
+    bytes_ms = nbytes / rate * 1e3
+    ops_ms = ops_count / flops["float32"] * 1e3
+    if bytes_ms >= ops_ms:
+        return bytes_ms, "bytes"
+    return ops_ms, "operations"
+
+
 def bound(spec, n: int, m: int, card: str) -> tuple:
     """(bound_ms, bound_by) of one fp32 solve: the larger of the bytes the
     function must move over the card's memory rate and its operations
     over the card's fp32 rate."""
     import torch
-    rate, flops = card_rates(card)
-    bytes_ms = spec.traffic_bytes(n, m, torch.float32) / rate * 1e3
-    ops_ms = ops_per_row(spec) * n * m / flops["float32"] * 1e3
-    if bytes_ms >= ops_ms:
-        return bytes_ms, "bytes"
-    return ops_ms, "operations"
+    return _bound(spec.traffic_bytes(n, m, torch.float32),
+                  ops_per_row(spec) * n * m, card)
 
 
 def kernel_stats(fn) -> dict:
@@ -521,17 +869,175 @@ def batch_times(key: str, entry: dict, card: str, gen) -> dict:
     }
 
 
+# operands of the recurrence timing rows: the kernel's (N, M) at each case
+_RECUR_ROWS = {"f": (1, False, SEQ, RGLRU_BATCH * RGLRU_WIDTH),
+               "g": (1, False, SEQ // SSD_CHUNK,
+                     SSD_BATCH * SSD_HEADS * SSD_HEAD_DIM * SSD_STATE),
+               "h": (2, True, SEQ, 65536)}
+
+
+def recurrence_times(key: str, launches: int, card: str, gen) -> dict:
+    """The recurrence kernel's row at a case's (N, M), fp32, distinct
+    gates in every column."""
+    import torch
+    from repro_torch.kernels import engine, ops
+
+    order, reverse, n, m = _RECUR_ROWS[key]
+    spec = engine.find_recurrence_spec(order, reverse=reverse)
+    gates, q = random_recur_operands(order, n, m, torch.float32, gen)
+    stats = kernel_stats(lambda: ops.recurrence_cuda(spec, gates, q))
+    plain_ms = event_ms(lambda: ops.recurrence_plain(spec, gates, q),
+                        reps=3, warmup=1)
+    got = ops.recurrence_cuda(spec, gates, q)
+    want = ops.recurrence_plain(spec, gates, q)
+    max_abs_err = (got - want).abs().max().item()
+    check(max_abs_err <= 1e-5 * want.abs().max().item(),
+          f"({key}) recurrence kernel vs plain max|Δ| {max_abs_err:.3e}")
+    del got, want, gates, q
+    torch.cuda.empty_cache()
+    bound_ms, bound_by = bound(spec, n, m, card)
+    entry = recurrence_entry_times(key, card, gen)
+    return {
+        "name": f"recurrence_sweep/{spec.name}/N{n}xM{m}",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/recurrence_sweep.cu",
+        "replaces": "src/repro/kernels/engine.py:1156",
+        "also_replaces": ["src/repro/kernels/engine.py:1169"],
+        "launches": launches,
+        "max_abs_err": max_abs_err,
+        "ms": stats["ms"], "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes a linear "
+                        "recurrence",
+        "case": key, "ms_q1": stats["ms_q1"], "ms_q3": stats["ms_q3"],
+        "reps": stats["reps"], **entry,
+    }
+
+
+def recurrence_entry_times(key: str, card: str, gen) -> dict:
+    """``linear_recurrence(..., method="auto")`` on the case's own leaves
+    (at (g) the (nc, B, H, 1, 1) gate, broadcast): forward, and forward
+    with the gradients of every leaf, each beside the function's floor.
+    The floor reads each leaf once and writes h once; with the backward
+    it also reads the cotangent and writes one gradient per leaf."""
+    import torch
+
+    _, order, reverse, make = recurrence_cases(gen)[key]
+    leaves = [t.requires_grad_() for t in make()]
+    cot = torch.randn(leaves[order].shape, generator=gen, device="cuda")
+
+    def fwd_bwd():
+        h = _recur_call(order, reverse, leaves, "auto")
+        torch.autograd.grad(h, leaves, cot)
+
+    with torch.no_grad():
+        fwd = kernel_stats(lambda: _recur_call(order, reverse, leaves,
+                                               "auto"))
+    both = kernel_stats(fwd_bwd)
+    words = sum(t.numel() for t in leaves) + cot.numel()   # leaves and h
+    del leaves, cot
+    torch.cuda.empty_cache()
+    rate = card_rates(card)[0]
+    return {"entry_ms": fwd["ms"], "entry_ms_q1": fwd["ms_q1"],
+            "entry_ms_q3": fwd["ms_q3"],
+            "entry_bound_ms": 4 * words / rate * 1e3,
+            "entry_fwd_bwd_ms": both["ms"],
+            "entry_fwd_bwd_ms_q1": both["ms_q1"],
+            "entry_fwd_bwd_ms_q3": both["ms_q3"],
+            "entry_fwd_bwd_bound_ms": 8 * words / rate * 1e3}
+
+
+def fused_times(key: str, launches: int, card: str, gen) -> dict:
+    """A fused CN step's row at (512, 2^20), fp32: kernel, plain, and one
+    step of the ``cuda`` pipeline (stencil, shared sweep, corner
+    correction) on the same field, the comparison of
+    ``repro/kernels/fused_cn.py``'s docstring."""
+    import math
+
+    import torch
+    from repro_torch.core import penta
+    from repro_torch.kernels import fused_cn, ops
+    from repro_torch.pde import DiffusionCN, HyperdiffusionCN
+
+    n, m = PDE_N, PDE_M
+    if key == "i":
+        kind, ops_per_elem = "tridiag", 12
+        model = DiffusionCN(n=n, dt=0.8 / n ** 2, backend="cuda")
+        pf = DiffusionCN(n=n, dt=0.8 / n ** 2, backend="fused").factor()
+        operands = [ops.stack_tridiag_lhs(pf.factor).contiguous(), pf.z,
+                    fused_cn.tridiag_params(pf, model.sigma, torch.float32)]
+    else:
+        kind, ops_per_elem = "penta", 26
+        model = HyperdiffusionCN(n=n, dt=0.8 / n ** 4, backend="cuda",
+                                 mode="uniform")
+        pf = penta.periodic_penta_factor(*(
+            torch.full((n,), v, device="cuda") for v in model.coefficients()))
+        operands = [ops.stack_penta_lhs(pf.factor).contiguous(), pf.Z,
+                    pf.Minv.contiguous(),
+                    fused_cn.penta_params(pf, model.sigma, torch.float32)]
+    name = f"fused_cn_{kind}"
+    kernel = getattr(fused_cn, f"{name}_cuda")
+    plain = getattr(fused_cn, f"{name}_plain")
+    x = torch.arange(n, device="cuda", dtype=torch.float64) / n
+    c = (torch.sin(2 * math.pi * x)[:, None]
+         + 0.3 * torch.randn(n, m, generator=gen, device="cuda",
+                             dtype=torch.float64)).float()
+    stats = kernel_stats(lambda: kernel(*operands, c))
+    plain_ms = event_ms(lambda: plain(*operands, c), reps=3, warmup=1)
+    got, want = kernel(*operands, c), plain(*operands, c)
+    max_abs_err = (got - want).abs().max().item()
+    check(max_abs_err <= 1e-5 * want.abs().max().item(),
+          f"({key}) {name} kernel vs plain max|Δ| {max_abs_err:.3e}")
+    del got, want
+    _, step = model.step_fn()
+    pipeline = kernel_stats(lambda: step(c))
+    del c
+    torch.cuda.empty_cache()
+    traffic = getattr(fused_cn, f"{kind}_traffic_bytes")(n, m, torch.float32)
+    bound_ms, bound_by = _bound(traffic["fused"], ops_per_elem * n * m, card)
+    replaces = ("src/repro/kernels/fused_cn.py:32" if kind == "tridiag"
+                else "src/repro/kernels/fused_cn_penta.py:31")
+    return {
+        "name": f"{name}/N{n}xM{m}",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_cn.cu",
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max_abs_err,
+        "ms": stats["ms"], "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes a CN step",
+        "pipeline_ms": pipeline["ms"],
+        "pipeline_ms_q1": pipeline["ms_q1"],
+        "pipeline_ms_q3": pipeline["ms_q3"],
+        "pipeline_bound_ms": _bound(traffic["unfused_pipeline"],
+                                    ops_per_elem * n * m, card)[0],
+        "case": key, "ms_q1": stats["ms_q1"], "ms_q3": stats["ms_q3"],
+        "reps": stats["reps"],
+    }
+
+
 def phase_times(main: dict, card: str) -> list:
-    """Kernel, plain and library times of each main-path case's sweep at
-    its shape; bound from this run's shapes and the card's peaks."""
+    """Kernel, plain and library times of each main-path case's kernel at
+    its shape; bound from this run's shapes and the card's peaks.  ``main``
+    maps (a)–(e) to their systems and launches, (f)–(k) to launches."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rows = []
     for key, entry in main.items():
-        times = batch_times if entry["system"].mode == "batch" else \
-            shared_times
-        rows.append(times(key, entry, card, gen))
+        if key in _RECUR_ROWS:
+            rows.append(recurrence_times(key, entry, card, gen))
+        elif key in ("i", "j"):
+            rows.append(fused_times(key, entry, card, gen))
+        elif key == "k":
+            continue   # ADI runs the shared sweep, timed at (a)–(c)
+        else:
+            times = batch_times if entry["system"].mode == "batch" else \
+                shared_times
+            rows.append(times(key, entry, card, gen))
         emit({"phase": "times", **rows[-1]})
         torch.cuda.empty_cache()
     return rows
@@ -553,6 +1059,7 @@ def main() -> int:
               "the root of a checkout", file=sys.stderr)
         return 1
     sys.path.insert(0, str(src))
+    start = time.perf_counter()
 
     try:
         smi = subprocess.run(
@@ -578,7 +1085,11 @@ def main() -> int:
 
         phase_kernel_vs_plain()
         main = phase_main_path()
+        main.update(phase_recurrences())
+        main.update(phase_pde())
         kernels = phase_times(main, card)
+        emit({"phase": "summary", "seconds": time.perf_counter() - start,
+              "peak_device_bytes": torch.cuda.max_memory_allocated()})
         print(json.dumps({"kernels": kernels}), flush=True)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)

@@ -5,8 +5,11 @@ arrays — the fields of ``TridiagFactor``, ``PeriodicTridiagFactor``,
 ``PentaFactor`` or ``PeriodicPentaFactor`` (a NamedTuple of arrays, or a
 mapping of field name to array, nested for the periodic factors), or the
 batch-mode dict of diagonals — plus its ``SolveMeta`` fields, and returns
-the port's ``Factorization`` of the same operator.  It reads plain numpy
-and mappings only; the caller converts from JAX.
+the port's ``Factorization`` of the same operator.
+``from_jax_periodic_factor`` turns the fields of a JAX
+``PeriodicTridiagFactor`` / ``PeriodicPentaFactor`` into the port's core
+factor, the operand of the fused CN steps.  Both read plain numpy and
+mappings only; the caller converts from JAX.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from .core.tridiag import PeriodicTridiagFactor, TridiagFactor
 from .kernels.ops import canonical_storage_dtype
 from .solver.functional import Factorization, SolveMeta
 from .solver.reference import _expand_if_scalarized
+from .solver.system import resolve_device
 
 # JAX backend -> the port's backend holding the same stored layout
 _BACKENDS = {"pallas": "cuda", "reference": "reference", "cuda": "cuda"}
@@ -37,6 +41,27 @@ def _fields(obj) -> dict:
 
 def _factor(cls, fields: dict, tensor):
     return cls(**{k: tensor(v) for k, v in fields.items()})
+
+
+def from_jax_periodic_factor(fields, *, device=None):
+    """The port's ``PeriodicTridiagFactor`` or ``PeriodicPentaFactor`` of
+    the numpy fields of JAX's (a NamedTuple of arrays, or a mapping with
+    the inner ``factor`` nested), on ``device`` (default: the CUDA
+    device).  JAX's ``z`` is (N,), as the port's is; its fused kernel
+    reshapes it to (N, 1) itself."""
+    device = resolve_device(device)
+
+    def tensor(x):
+        return torch.tensor(np.asarray(x), device=device)
+
+    fields = _fields(fields)
+    inner = _fields(fields.pop("factor"))
+    if "z" in fields:
+        return PeriodicTridiagFactor(
+            factor=_factor(TridiagFactor, inner, tensor),
+            **{k: tensor(v) for k, v in fields.items()})
+    return PeriodicPentaFactor(factor=_factor(PentaFactor, inner, tensor),
+                               **{k: tensor(v) for k, v in fields.items()})
 
 
 def from_jax_factorization(stored_np, meta_dict: Mapping, *, device,

@@ -22,7 +22,7 @@ import dataclasses
 
 import torch
 
-from .recurrence import _align, linear_recurrence
+from .recurrence import _align, _shift_down, _shift_up, linear_recurrence
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,16 +75,6 @@ def thomas_solve(f: TridiagFactor, d, *, method: str = "scan") -> torch.Tensor:
     c_hat = _align(f.c_hat, d)
     d_hat = linear_recurrence(-a * inv_denom, d * inv_denom, method=method)
     return linear_recurrence(-c_hat, d_hat, reverse=True, method=method)
-
-
-def _shift_down(v: torch.Tensor, k: int) -> torch.Tensor:
-    """Row i reads v at i-k (zeros shift in at the top)."""
-    return torch.cat([torch.zeros_like(v[:k]), v[:-k]], dim=0)
-
-
-def _shift_up(v: torch.Tensor, k: int) -> torch.Tensor:
-    """Row i reads v at i+k (zeros shift in at the bottom)."""
-    return torch.cat([v[k:], torch.zeros_like(v[:k])], dim=0)
 
 
 def thomas_solve_t(f: TridiagFactor, g, *, method: str = "scan") -> torch.Tensor:

@@ -24,6 +24,11 @@ stored inverse diagonal as its scale, differ between variants.
     ``delta``) per system, which this pass reads.
   * ``SweepSpec`` / ``find_spec`` — one variant, with the byte accounting
     (``traffic_words`` / ``traffic_bytes``) derived from its shape.
+  * ``_RECUR_TABLE`` / ``RecurrenceSpec`` / ``find_recurrence_spec`` — the
+    gated linear recurrences (``h_i = p_i h_{i-1} + q_i`` and its order-2
+    sibling): ONE pass whose coefficients are per-token (N, M) gate
+    operands instead of rows of a shared factor
+    (``csrc/recurrence_sweep.cu``).
 
 The transposed variants solve A^T x = rhs from the SAME stored factor:
 A = L·U means A^T = U^T·L^T, so they read shifted rows of the forward
@@ -82,6 +87,16 @@ _PASS_TABLE = {
 # Batch-layout back substitution, by carry order: row r of the per-system
 # coefficients the fused factorisation produced (c_hat, or gamma/delta).
 _BATCH_BWD = {
+    1: PassSpec(((0, 1),), None),
+    2: PassSpec(((0, 1), (1, 2)), None),
+}
+
+
+# Gated-recurrence pass, by carry order.  Gate operand ``g`` multiplies the
+# carry at lag ``g + 1``; there is no scale.  The JAX engine subtracts
+# gates read negated (bitwise equal inside JAX); the CUDA kernel and its
+# plain version add ``gate * carry`` directly, in the same term order.
+_RECUR_TABLE = {
     1: PassSpec(((0, 1),), None),
     2: PassSpec(((0, 1), (1, 2)), None),
 }
@@ -189,12 +204,65 @@ class SweepSpec:
                 + self.compute_words(n, m) * _itemsize(compute_dtype(sdt)))
 
 
+@dataclasses.dataclass(frozen=True)
+class RecurrenceSpec:
+    """One gated-recurrence variant: ``order`` carry lags, walked ascending
+    or (``reverse``) descending from zero carries.  A nonzero ``h0`` is
+    folded into the boundary rows of ``q`` on the host (``ops.recurrence``).
+
+    Only the JAX engine's resident names exist here (``recur1``,
+    ``recur1_rev``, ``recur2``, ``recur2_rev``): its streamed variants
+    chunk N because a TPU core has 12 MiB of VMEM, while one Hopper thread
+    walks all N rows of its column, so one kernel serves both tilings and
+    no ``_streamed`` spec is registered."""
+
+    order: int
+    reverse: bool = False
+
+    def __post_init__(self):
+        if self.order not in (1, 2):
+            raise ValueError(f"recurrence order must be 1 or 2, "
+                             f"got {self.order}")
+
+    layout = "recurrence"
+    mode = "recurrence"
+    lhs_rows = 0              # no shared factor: the gates are operands
+
+    @property
+    def name(self) -> str:
+        return f"recur{self.order}" + ("_rev" if self.reverse else "")
+
+    def passes(self) -> tuple:
+        """``(pass,)``: a recurrence is one sweep pass."""
+        return (_RECUR_TABLE[self.order],)
+
+    def storage_words(self, n: int, m: int) -> int:
+        """``order`` gate operands and q, each read once."""
+        return (self.order + 1) * n * m
+
+    def compute_words(self, n: int, m: int) -> int:
+        """h, written once."""
+        return n * m
+
+    def traffic_words(self, n: int, m: int) -> int:
+        return self.storage_words(n, m) + self.compute_words(n, m)
+
+    def traffic_bytes(self, n: int, m: int, dtype=torch.float32,
+                      storage_dtype=None) -> int:
+        """Operands at ``storage_dtype`` (default ``dtype``), h at
+        ``dtype``: the JAX engine's accounting."""
+        return (self.storage_words(n, m) * _itemsize(storage_dtype or dtype)
+                + self.compute_words(n, m) * _itemsize(dtype))
+
+
 REGISTRY: dict = {
     s.name: s for s in (
         *(SweepSpec(bw, transposed=t, uniform=u)
           for bw in (3, 5) for u in (False, True)
           for t in (False, True) if not (u and bw == 3)),
-        *(SweepSpec(bw, layout="batch") for bw in (3, 5)))
+        *(SweepSpec(bw, layout="batch") for bw in (3, 5)),
+        *(RecurrenceSpec(order, reverse=r) for order in (1, 2)
+          for r in (False, True)))
 }
 
 
@@ -215,6 +283,16 @@ def find_spec(bandwidth: int, mode: str, *,
                      uniform=(mode == "uniform" and bandwidth == 5))
 
 
+def find_recurrence_spec(order: int, *, reverse: bool = False
+                         ) -> RecurrenceSpec:
+    """The registered recurrence spec of ``order`` and direction."""
+    if order not in (1, 2):
+        raise ValueError(f"no recurrence kernel for order={order!r}; "
+                         "1 (h = p*h' + q) and 2 (h = s*h' + t*h'' + u) "
+                         "exist")
+    return REGISTRY[RecurrenceSpec(order, reverse=reverse).name]
+
+
 def pass_table() -> dict:
     """A copy of ``_PASS_TABLE`` (mutating it cannot corrupt the sweep)."""
     return dict(_PASS_TABLE)
@@ -223,3 +301,8 @@ def pass_table() -> dict:
 def batch_backward_table() -> dict:
     """A copy of ``_BATCH_BWD``."""
     return dict(_BATCH_BWD)
+
+
+def recurrence_table() -> dict:
+    """A copy of ``_RECUR_TABLE``."""
+    return dict(_RECUR_TABLE)

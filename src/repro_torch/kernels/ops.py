@@ -21,7 +21,15 @@ The per-system-LHS half (cuThomasBatch / cuPentBatch):
   * ``batch_sweep`` dispatches the same way, to ``csrc/batch_sweep.cu``
     or to ``batch_sweep_plain``.
 
-``LAUNCHES`` counts the kernels' launches by sweep variant; it is bumped
+The gated recurrences (``h_i = p_i h_{i-1} + q_i`` and order 2):
+
+  * ``recurrence`` folds a nonzero ``h0`` into the boundary rows of q on
+    the host, as the JAX dispatcher does, so the kernel always starts
+    from zero carries;
+  * ``recurrence_sweep`` dispatches the same way, to
+    ``csrc/recurrence_sweep.cu`` or to ``recurrence_plain``.
+
+``LAUNCHES`` counts the kernels' launches by spec name; it is bumped
 where a kernel launches and nowhere else.
 """
 
@@ -31,9 +39,10 @@ import ctypes
 
 import torch
 
-from ..core.tridiag import _shift_down, _shift_up
+from ..core.recurrence import _shift_down, _shift_up
 from . import build
-from .engine import EPS_PARAM, SweepSpec, compute_dtype, find_spec
+from .engine import (EPS_PARAM, RecurrenceSpec, SweepSpec, compute_dtype,
+                     find_recurrence_spec, find_spec)
 
 _C_INT, _C_PTR, _C_I64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
 # The C entry point of each kernel library, by name.
@@ -44,6 +53,12 @@ _ARGTYPES = {
     # dtype, bandwidth, diags, rhs, out, work, n, m, threads, stream
     "batch_sweep": [_C_INT, _C_INT, ctypes.POINTER(_C_PTR), _C_PTR, _C_PTR,
                     _C_PTR, _C_I64, _C_I64, _C_INT, _C_PTR],
+    # dtype, order, reverse, gates, q, out, n, m, threads, stream
+    "recurrence_sweep": [_C_INT, _C_INT, _C_INT, ctypes.POINTER(_C_PTR),
+                         _C_PTR, _C_PTR, _C_I64, _C_I64, _C_INT, _C_PTR],
+    # dtype, bandwidth, lhs, z, minv, params, c, x, n, m, threads, stream
+    "fused_cn": [_C_INT, _C_INT, _C_PTR, _C_PTR, _C_PTR, _C_PTR, _C_PTR,
+                 _C_PTR, _C_I64, _C_I64, _C_INT, _C_PTR],
 }
 
 #: Kernel launches by spec name (``thomas_constant``, ``penta_uniform_t``…).
@@ -53,6 +68,8 @@ DEFAULT_THREADS = 256
 DEFAULT_CHUNK_N = 512
 _SMEM_LIMIT = 48 * 1024   # bytes of shared memory a block gets by default
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+#: The recurrence kernel also takes fp16 (fp32 carries, as for bf16).
+RECURRENCE_DTYPES = {**_DTYPE_CODES, torch.float16: 3}
 _STORAGE_ALIASES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
                     "float32": torch.float32, "float64": torch.float64}
 
@@ -350,6 +367,129 @@ def batch_sweep(spec: SweepSpec, diags, rhs: torch.Tensor) -> torch.Tensor:
     if rhs.device.type != "cpu":
         raise ValueError(f"batch_sweep: no kernel for device {rhs.device}")
     return batch_sweep_plain(spec, diags, rhs)
+
+
+# ---------------------------------------------------------------------------
+# The gated recurrence: kernel, plain version, dispatch
+# ---------------------------------------------------------------------------
+
+def same_dtype(name: str, operands, ref: torch.Tensor) -> None:
+    """Raise unless every operand has ``ref``'s dtype (a kernel reads them
+    all as one type)."""
+    if any(t.dtype != ref.dtype for t in operands):
+        raise TypeError(f"{name}: operand dtypes "
+                        f"{[t.dtype for t in operands]} differ from "
+                        f"{ref.dtype}")
+
+
+def recurrence_plain(spec: RecurrenceSpec, gates, q: torch.Tensor
+                     ) -> torch.Tensor:
+    """The recurrence kernel's function in plain torch, one row at a time,
+    from zero carries: ``acc = q_i + g0_i h1 (+ g1_i h2)`` in the kernel's
+    term order.  bf16 and fp16 operands carry fp32 and store h at their
+    own type, as the kernel does."""
+    cdt = compute_dtype(q.dtype)
+    n, m = q.shape
+    out = torch.empty((n, m), dtype=q.dtype, device=q.device)
+    carries = (torch.zeros((m,), dtype=cdt, device=q.device),) * spec.order
+    (pspec,) = spec.passes()
+    rows = range(n - 1, -1, -1) if spec.reverse else range(n)
+    for i in rows:
+        acc = q[i].to(cdt)
+        for src, lag in pspec.terms:
+            acc = acc + gates[src][i].to(cdt) * carries[lag - 1]
+        out[i] = acc
+        carries = (acc,) + carries[:spec.order - 1]
+    return out
+
+
+def recurrence_cuda(spec: RecurrenceSpec, gates, q: torch.Tensor
+                    ) -> torch.Tensor:
+    """Launch ``csrc/recurrence_sweep.cu`` on the current stream.
+    Validates device, dtype, shape and contiguity and raises on what the
+    kernel does not take; raises when the launch reports a CUDA error."""
+    n, m = q.shape
+    operands = [*gates, q]
+    if len(gates) != spec.order:
+        raise ValueError(f"recurrence: {spec.name} takes {spec.order} "
+                         f"gate(s), got {len(gates)}")
+    if any(not t.is_cuda or t.device != q.device for t in operands):
+        raise ValueError("recurrence: every operand must lie on one CUDA "
+                         "device")
+    same_dtype("recurrence", gates, q)
+    if q.dtype not in RECURRENCE_DTYPES:
+        raise TypeError(f"recurrence: unsupported dtype {q.dtype}")
+    if any(t.shape != (n, m) for t in gates):
+        raise ValueError(f"recurrence: every gate must be ({n}, {m})")
+    if not all(t.is_contiguous() for t in operands):
+        raise ValueError("recurrence: operands must be contiguous")
+    out = torch.empty((n, m), dtype=q.dtype, device=q.device)
+    if n == 0 or m == 0:
+        return out
+    fn = _kernel("recurrence_sweep")
+    ptrs = (ctypes.c_void_p * spec.order)(*(t.data_ptr() for t in gates))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(RECURRENCE_DTYPES[q.dtype], spec.order, int(spec.reverse),
+                ptrs, q.data_ptr(), out.data_ptr(), n, m, DEFAULT_THREADS,
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"recurrence launch failed: CUDA error {rc}")
+    LAUNCHES[spec.name] = LAUNCHES.get(spec.name, 0) + 1
+    return out
+
+
+def recurrence_sweep(spec: RecurrenceSpec, gates, q: torch.Tensor
+                     ) -> torch.Tensor:
+    """The recurrence on the kernel for CUDA tensors (which validates its
+    operands), on the plain version for CPU tensors; any other device
+    raises."""
+    if q.is_cuda:
+        return recurrence_cuda(spec, gates, q)
+    if q.device.type != "cpu":
+        raise ValueError(f"recurrence: no kernel for device {q.device}")
+    same_dtype("recurrence", gates, q)
+    return recurrence_plain(spec, gates, q)
+
+
+def recurrence(*operands, h0=None, reverse: bool = False) -> torch.Tensor:
+    """Gated linear recurrence over an interleaved (N, M) batch.
+
+    ``operands`` is ``(p, q)`` for ``h_i = p_i h_{i-1} + q_i`` or
+    ``(s, t, u)`` for ``h_i = s_i h_{i-1} + t_i h_{i-2} + u_i``: per-token
+    (N, M) gates and the additive operand, one dtype.  ``reverse=True``
+    runs from i = N-1 down (carries index i+1, i+2).
+
+    ``h0`` (an array broadcastable over the lanes for order 1, a
+    ``(h_{-1}, h_{-2})`` pair for order 2) is folded into the boundary
+    rows of q here, on the host, as ``repro.kernels.ops.recurrence``
+    does, so the kernel keeps its zero carries.  There is no lane or sweep
+    padding: the kernel masks the ragged edge of M and walks all N."""
+    *gates, q = operands
+    order = len(gates)
+    if order not in (1, 2):
+        raise ValueError(
+            f"recurrence takes (p, q) or (s, t, u); got {order + 1} operands")
+    n = q.shape[0]
+    if h0 is not None:
+        hs = (h0,) if order == 1 and not isinstance(h0, (tuple, list)) \
+            else tuple(h0)
+        if len(hs) != order:
+            raise ValueError(f"h0 must carry {order} state(s), got {len(hs)}")
+        hs = tuple(torch.broadcast_to(torch.as_tensor(h, device=q.device),
+                                      q.shape[1:]).to(q.dtype) for h in hs)
+        e0 = n - 1 if reverse else 0
+        fold = gates[0][e0] * hs[0]
+        if order == 2:
+            fold = fold + gates[1][e0] * hs[1]
+        q = q.clone()
+        q[e0] += fold
+        if order == 2 and n > 1:
+            e1 = n - 2 if reverse else 1
+            q[e1] += gates[1][e1] * hs[0]
+    spec = find_recurrence_spec(order, reverse=reverse)
+    return recurrence_sweep(spec, [g.contiguous() for g in gates],
+                            q.contiguous())
 
 
 # ---------------------------------------------------------------------------

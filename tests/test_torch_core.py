@@ -237,8 +237,10 @@ def test_align_matches():
         trec._align(torch.zeros(4, 3), ref)
 
 
-@pytest.mark.parametrize("method", ("assoc", "pallas", "auto", "bogus"))
+@pytest.mark.parametrize("method", ("pallas", "interpret", "bogus", ""))
 def test_unported_methods_raise(method):
+    """JAX's kernel method is ``cuda`` here; its name, the TPU interpret
+    mode and unknown names are refused."""
     p, q = torch.zeros(3), torch.zeros(3, 2)
     with pytest.raises(ValueError, match="unknown method"):
         trec.linear_recurrence(p, q, method=method)

@@ -1,8 +1,10 @@
 """The hand-written CUDA kernels on the card, against their plain versions.
 
-``shared_sweep.cu`` (one shared factor) and ``batch_sweep.cu`` (per-system
+``shared_sweep.cu`` (one shared factor), ``batch_sweep.cu`` (per-system
 diagonals, factorisation fused into the solve; tested with distinct
-diagonals in every system).
+diagonals in every system), ``recurrence_sweep.cu`` (the gated
+recurrences, distinct gates in every column, and their autograd) and
+``fused_cn.cu`` (the two fused CN steps).
 
 Every test here is marked ``cuda`` and needs a CUDA device; without one
 they skip.  The file imports torch, numpy and ``repro_torch`` only, so it
@@ -12,8 +14,12 @@ runs on a GPU machine that has no JAX:
 
 Tolerances (kernel vs plain version, max|Δ| / max|plain|): fp32 1e-5,
 fp64 1e-12.  With bf16 storage both read the same bf16 operands and compute
-in fp32, so they are held to the fp32 bar, 1e-5.  ``nvcc`` contracts
-``a - b*c`` into an FMA, so the two agree to a few ulps, not bitwise.
+in fp32, so they are held to the fp32 bar, 1e-5; the recurrence also
+stores h at bf16 (or fp16), so there the bar is 2e-2
+(``tests/test_recurrence.py``'s; 2e-3 at fp16).  The fused CN steps are
+held on operands drawn at random, against the largest term the step
+forms rather than max|plain|.  ``nvcc`` contracts ``a - b*c`` into an
+FMA, so the two agree to a few ulps, not bitwise.
 """
 
 from __future__ import annotations
@@ -151,7 +157,7 @@ def _batch_operands(bw: int, n: int, m: int, dtype, seed: int = 0) -> list:
 
 
 _TORCH_STORAGE = {"float32": torch.float32, "float64": torch.float64,
-                  "bf16": torch.bfloat16}
+                  "bf16": torch.bfloat16, "float16": torch.float16}
 
 
 @pytest.mark.parametrize("storage", sorted(STORAGES))
@@ -204,3 +210,159 @@ def test_batch_solver_rolled_adjoint_on_card_matches_cpu(bw, cuda_device):
     want.pow(2).sum().backward()
     assert _rel(x, want) <= 1e-5
     assert _rel(r_card.grad, r_host.grad) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# recurrence_sweep.cu and fused_cn.cu
+# ---------------------------------------------------------------------------
+
+RECUR_SPECS = sorted(n for n, s in engine.REGISTRY.items()
+                     if s.layout == "recurrence")
+# bf16 and fp16 operands: both read the same values and carry fp32, but h
+# is stored at the operand type, so a one-ulp difference in a carry can
+# flip a rounding: about two ulps of the storage type (2^-7, 2^-10)
+RECUR_TOL = {"float32": 1e-5, "float64": 1e-12, "bf16": 2e-2,
+             "float16": 2e-3}
+
+
+def _recur_operands(order: int, n: int, m: int, dtype, seed: int = 0):
+    """Distinct gates in every column, scaled so the recurrence stays
+    bounded, and q, on the card."""
+    rng = np.random.default_rng(seed + order)
+    scales = (0.9,) if order == 1 else (0.6, 0.3)
+    gates = [rng.uniform(-sc, sc, (n, m)) for sc in scales]
+    q = rng.normal(size=(n, m))
+    return ([torch.from_numpy(g).to("cuda", dtype) for g in gates],
+            torch.from_numpy(q).to("cuda", dtype))
+
+
+@pytest.mark.parametrize("n", (1, 2, 3, 600))
+@pytest.mark.parametrize("storage", sorted(RECUR_TOL))
+@pytest.mark.parametrize("name", RECUR_SPECS)
+def test_recurrence_kernel_matches_plain(name, storage, n, cuda_device):
+    spec = engine.REGISTRY[name]
+    gates, q = _recur_operands(spec.order, n, 333, _TORCH_STORAGE[storage],
+                               seed=n)
+    want = ops.recurrence_plain(spec, gates, q)
+    before = ops.LAUNCHES.get(name, 0)
+    got = ops.recurrence_sweep(spec, gates, q)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[name] == before + 1
+    assert got.is_cuda and got.dtype == want.dtype == q.dtype
+    assert _rel(got, want) <= RECUR_TOL[storage]
+
+
+@pytest.mark.parametrize("order", (1, 2))
+@pytest.mark.parametrize("reverse", (False, True))
+def test_recurrence_autograd_on_card_matches_cpu(order, reverse,
+                                                 cuda_device):
+    from repro_torch.core.recurrence import (linear_recurrence,
+                                             linear_recurrence2)
+    gates, q = _recur_operands(order, 37, 19, torch.float32, seed=7)
+    h0 = [torch.randn(19) for _ in range(order)]
+    fn = linear_recurrence if order == 1 else linear_recurrence2
+
+    def run(device):
+        leaves = [t.detach().to(device).requires_grad_()
+                  for t in (*gates, q, *h0)]
+        seeds = leaves[-order:]
+        h = fn(*leaves[:order + 1], seeds[0] if order == 1 else seeds,
+               reverse=reverse, method="cuda")
+        h.sin().sum().backward()
+        return [h] + [t.grad for t in leaves]
+
+    card, host = run(cuda_device), run("cpu")
+    torch.cuda.synchronize()
+    for got, want in zip(card, host):
+        assert _rel(got, want) <= 1e-5
+
+
+def _periodic_factors(n: int, dtype):
+    s = 0.4
+    tri = [torch.full((n,), v, dtype=dtype) for v in (-s, 1 + 2 * s, -s)]
+    pen = [torch.full((n,), v, dtype=dtype)
+           for v in (s, -4 * s, 1 + 6 * s, -4 * s, s)]
+    return (tridiag.periodic_thomas_factor(*tri),
+            penta.periodic_penta_factor(*pen) if n >= 5 else None)
+
+
+def _random_fused_operands(kind: str, n: int, dtype, seed: int):
+    """Factor rows, z / Z, Minv and parameters drawn uniformly in [-1, 1],
+    with no structure of a CN factor, on the card."""
+    g = torch.Generator().manual_seed(seed)
+
+    def u(*shape):
+        return 2 * torch.rand(*shape, generator=g, dtype=dtype) - 1
+
+    zeros = torch.zeros(5, dtype=dtype)
+    if kind == "tridiag":
+        operands = [u(3, n), u(n), torch.cat([u(5), zeros[:3]])]
+    else:
+        operands = [u(5, n), u(n, 4), u(4, 4), torch.cat([u(11), zeros])]
+    return [t.to("cuda") for t in operands]
+
+
+def _fused_term_scale(kind: str, operands, c) -> float:
+    """The largest term the fused step forms: the stencil's terms, the
+    forward-sweep values, y after the backward sweep, and x.  Both the
+    kernel and its plain version round each term, so their difference is
+    measured against this, not against max|x| alone: random operands can
+    make x = y - (correction) cancel to far less than y."""
+    from repro_torch.kernels import fused_cn
+    plain = getattr(fused_cn, f"fused_cn_{kind}_plain")
+    lhs, z, *rest = operands
+    back = 2 if kind == "tridiag" else 3    # rows of the backward sweep
+    fwd_only = torch.cat([lhs[:back], torch.zeros_like(lhs[back:])])
+    terms = [plain(*operands, c),
+             plain(lhs, torch.zeros_like(z), *rest, c),        # y
+             plain(fwd_only, torch.zeros_like(z), *rest, c)]   # forward
+    weights = rest[-1][:3 if kind == "tridiag" else 5]
+    return max([t.abs().max().item() for t in terms]
+               + [(c.abs().max() * weights.abs().max()).item()])
+
+
+# the penta stencil wraps by two rows, so it takes N >= 2
+@pytest.mark.parametrize("kind,n", [(kind, n) for kind in ("tridiag", "penta")
+                                    for n in (1, 2, 3, 600)
+                                    if not (kind == "penta" and n < 2)])
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+def test_fused_cn_kernel_matches_plain(kind, dtype, n, cuda_device):
+    """max|kernel - plain| ≤ tol · (the largest term the step forms)."""
+    from repro_torch.kernels import fused_cn
+    operands = _random_fused_operands(kind, n, dtype, seed=n)
+    c = torch.randn(n, 333, dtype=dtype, device=cuda_device)
+    plain = getattr(fused_cn, f"fused_cn_{kind}_plain")
+    name = f"fused_cn_{kind}"
+    want = plain(*operands, c)
+    before = ops.LAUNCHES.get(name, 0)
+    got = getattr(fused_cn, name)(*operands, c)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[name] == before + 1
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    err = (got - want).abs().max().item()
+    assert err <= tol * _fused_term_scale(kind, operands, c)
+
+
+@pytest.mark.parametrize("kind", ("tridiag", "penta"))
+def test_fused_cn_step_on_card_matches_cpu(kind, cuda_device):
+    from repro_torch.kernels import fused_cn
+    n = 64
+    tri, pen = _periodic_factors(n, torch.float32)
+    pf = tri if kind == "tridiag" else pen
+    step = (fused_cn.fused_cn_step if kind == "tridiag"
+            else fused_cn.fused_cn_penta_step)
+    c = torch.from_numpy(
+        np.random.default_rng(8).normal(size=(n, 300)).astype(np.float32))
+    want = step(pf, 0.4, c)
+    got = step(_to_device(pf, cuda_device), 0.4, c.to(cuda_device))
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= 1e-5
+
+
+def _to_device(factor, device):
+    """A (possibly nested) factor dataclass with every tensor on ``device``."""
+    return dataclasses.replace(factor, **{
+        f.name: (_to_device(v, device) if dataclasses.is_dataclass(v)
+                 else v.to(device))
+        for f in dataclasses.fields(factor)
+        for v in (getattr(factor, f.name),)})
