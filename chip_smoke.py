@@ -15,7 +15,10 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
      fused CN steps (fp32, fp64) are held the same way, with distinct
      operands in every column, at N ∈ {1, 2, 3, 600}, a ragged M and one
      full-size grid; the fused steps on operands drawn at random, against
-     the largest term the step forms;
+     the largest term the step forms, on the route each N takes and on the
+     global route forced, also at the on-chip route's last N and the first
+     past it (where a forced on-chip launch must raise), each route
+     counted under its own name;
   4. the main path at full size through ``repro_torch.solver`` (factorize
      with ``backend="auto"``, solve, and the adjoint through
      ``loss.backward()``), with the launch counts read around each case and
@@ -28,7 +31,9 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
      an fp64 plain scan and its autograd; (i) ``DiffusionCN(backend=
      "fused")`` against the ``cuda`` pipeline and the analytic decay, (j)
      ``fused_cn_penta_step`` against ``HyperdiffusionCN(backend="cuda")``,
-     (k) ``ADI2D`` against the analytic decay;
+     both on the fused steps' on-chip route; (k) ``ADI2D`` against the
+     analytic decay; (l) both fused steps at N = 4096, past the on-chip
+     route's rows, against the ``cuda`` pipeline (the global route);
   6. kernel, plain-version and library times at the main-path shapes,
      beside the least time the card could take; each batch row also
      times the shared sweep on the same operator and shape, the paper's
@@ -36,8 +41,12 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
      full grid on distinct diagonals in every system; each recurrence row
      also times the public entry point on the case's own operands (the
      SSD gate broadcast), forward and forward + backward, beside the
-     function's own byte floor; each fused row also times one step of the
-     ``cuda`` pipeline at the same shape;
+     function's own byte floor; each on-chip fused row times the on-chip
+     and the global route in turns, at fp32 and fp64, with the rate on
+     the floor bytes, the block's occupancy and ptxas report, the on-chip
+     route at 1–16 row chunks, and one step of the ``cuda`` pipeline at
+     the same shape; (k)'s row times the shared sweep at the ADI half
+     step's shape, and (l)'s rows the global route at its own;
   7. one summary line (the run's seconds and peak device memory) and one
      ``{"kernels": [...]}`` line.
 
@@ -48,6 +57,7 @@ non-zero before it; a machine without CUDA fails, it never runs on the CPU.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -75,7 +85,9 @@ _TOLERANCE = {"float32": 1e-5, "float64": 1e-12, "bf16": 1e-5}
 # of tests/test_recurrence.py).
 _RECUR_TOLERANCE = {"float32": 1e-5, "float64": 1e-12, "bf16": 2e-2,
                     "float16": 2e-3}
-# edge shapes (ragged M) and the full-size grid of the new kernels
+# edge shapes (ragged M) and the full-size grid of the new kernels; the
+# fused steps also at the on-chip route's edge, N_max and N_max + 1 rows
+# (``fused_shapes``)
 _RECUR_SHAPES = ((1, 333), (2, 333), (3, 333), (600, 1000), (4096, 65536))
 _FUSED_SHAPES = ((1, 333), (2, 333), (3, 333), (600, 1000), (512, 1 << 20))
 
@@ -231,6 +243,38 @@ def fused_term_scale(kind: str, plain, operands, c) -> float:
                + [(c.abs().max() * weights.abs().max()).item()])
 
 
+def fused_shapes(dtype) -> tuple:
+    """``_FUSED_SHAPES`` and the on-chip route's edge at ``dtype``: N_max
+    rows (the last on chip) and N_max + 1 (the first on the global
+    route), at M = 1000, not a multiple of the tile's 32 columns."""
+    from repro_torch.kernels import fused_cn
+    n_max = fused_cn.onchip_max_rows(dtype)
+    return _FUSED_SHAPES + ((n_max, 1000), (n_max + 1, 1000))
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers, spills and shared memory of each kernel in a
+    ``-Xptxas -v`` report, by kernel name and type (``<f>``, ``<d>``)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        found = re.search(r"(?:entry function|properties for) .*?\d"
+                          r"([a-z][a-z_]*_kernel)I([a-z])E", line)
+        if found:
+            name = f"{found.group(1)}<{found.group(2)}>"
+            out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        for key, pattern in (("registers", r"Used (\d+) registers"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"),
+                             ("smem_bytes", r"(\d+) bytes smem")):
+            hit = re.search(pattern, line)
+            if hit:
+                out[name][key] = int(hit.group(1))
+    return out
+
+
 def ops_per_row(spec) -> int:
     """Arithmetic operations per row and system, read off each kernel's
     source, a division counted as one: the shared sweep does 2 per carry
@@ -318,20 +362,45 @@ def phase_kernel_vs_plain() -> None:
         plain = getattr(fused_cn, f"{name}_plain")
         for label in ("float32", "float64"):
             dtype = getattr(torch, label)
-            for n, m in _FUSED_SHAPES:
+            for n, m in fused_shapes(dtype):
                 if kind == "penta" and n < 2:
                     continue   # the 5-point stencil wraps by two rows
                 operands = random_fused_operands(kind, n, dtype, gen)
                 c = torch.randn(n, m, generator=gen, device="cuda",
                                 dtype=dtype)
-                compare(name, label, n, m, kernel(*operands, c),
-                        plain(*operands, c), scale=fused_term_scale(
-                            kind, plain, operands, c))
+                scale = fused_term_scale(kind, plain, operands, c)
+                # the route the step picks, then the global route forced,
+                # each against the plain version in its own chunks
+                picked = fused_cn.route(n, dtype)[0]
+                for which in (None, "global"):
+                    route = picked if which is None else which
+                    ops.reset_launches()
+                    got = kernel(*operands, c, route=which)
+                    counted = dict(ops.LAUNCHES)
+                    want_count = {fused_cn.launch_name(kind, route): 1}
+                    check(counted == want_count,
+                          f"{name}/{label} N={n}: launches {counted}, "
+                          f"expected {want_count}")
+                    want = plain(*operands, c, chunks=fused_cn.sweep_chunks(
+                        n, dtype, route))
+                    compare(f"{name}/{route}", label, n, m, got, want,
+                            scale=scale)
+                    del got, want
+                if picked == "global":
+                    try:
+                        kernel(*operands, c, route="onchip")
+                    except ValueError:
+                        pass
+                    else:
+                        raise SmokeFailure(f"{name}/{label} N={n}: the "
+                                           "on-chip route took an N past "
+                                           "its shared memory")
                 del operands, c
             torch.cuda.empty_cache()
     emit({"phase": "kernel_vs_plain", "shapes": [list(s) for s in shapes],
           "recurrence_shapes": [list(s) for s in _RECUR_SHAPES],
-          "fused_shapes": [list(s) for s in _FUSED_SHAPES],
+          "fused_shapes": {label: [list(s) for s in fused_shapes(
+              getattr(torch, label))] for label in ("float32", "float64")},
           "tolerance": _TOLERANCE, "recurrence_tolerance": _RECUR_TOLERANCE,
           "fused_measure": "max|kernel - plain| / the largest term formed",
           "max_rel_err": worst})
@@ -475,6 +544,10 @@ RGLRU_BATCH = 16
 SSD_HEADS, SSD_HEAD_DIM, SSD_STATE, SSD_CHUNK, SSD_BATCH = 24, 64, 128, 64, 8
 PDE_N, PDE_M, PDE_STEPS, ADI_N, ADI_B, ADI_STEPS = 512, 1 << 20, 10, 1024, \
     64, 5
+# case (l): the fused steps past the on-chip route's rows (global route)
+WIDE_N, WIDE_M, WIDE_STEPS = 4096, 65536, 5
+# chunk counts the on-chip fused rows also time (fp32, 512 rows)
+CHUNK_SWEEP = (1, 2, 4, 8, 16)
 
 
 def recurrence_cases(gen) -> dict:
@@ -604,7 +677,7 @@ def phase_pde() -> dict:
     wave = torch.sin(2 * math.pi * x)[:, None]
     launches = {}
 
-    def run_case(key, title, body, want, kernel):
+    def run_case(key, title, body, want, kernels):
         torch.cuda.synchronize()
         ops.reset_launches()
         t0 = time.perf_counter()
@@ -618,7 +691,7 @@ def phase_pde() -> dict:
         emit({"phase": "main_path", "case": key, "title": title,
               "launches": got, "seconds": time.perf_counter() - t0,
               "worst_over_bar": checks})
-        launches[key] = got[kernel]
+        launches[key] = {k: got[k] for k in kernels}
         torch.cuda.empty_cache()
 
     def diffusion():
@@ -676,17 +749,55 @@ def phase_pde() -> dict:
         return {"vs_analytic": _allclose(out, want.expand_as(out), 5e-3,
                                          5e-4)}
 
+    def wide():
+        # both fused steps at WIDE_N rows, past the on-chip route's
+        # onchip_max_rows: the public steps take the global route there
+        wn, wm = WIDE_N, WIDE_M
+        xw = torch.arange(wn, device="cuda", dtype=torch.float64) / wn
+        noisy = (torch.sin(2 * math.pi * xw)[:, None] + 0.3 * torch.randn(
+            wn, wm, generator=gen, device="cuda", dtype=torch.float64)
+                 ).float()
+        dt = 0.8 / wn ** 2
+        out_f = DiffusionCN(n=wn, dt=dt, backend="fused").run(noisy,
+                                                               WIDE_STEPS)
+        out_c = DiffusionCN(n=wn, dt=dt, backend="cuda").run(noisy,
+                                                              WIDE_STEPS)
+        checks = {"diffusion_vs_cuda_pipeline": _allclose(out_f, out_c, 3e-4,
+                                                          3e-5)}
+        del out_f, out_c
+        hyper = HyperdiffusionCN(n=wn, dt=0.8 / wn ** 4, backend="cuda",
+                                 mode="uniform")
+        pf = penta.periodic_penta_factor(*(
+            torch.full((wn,), v, device="cuda")
+            for v in hyper.coefficients()))
+        out_f = noisy
+        for _ in range(WIDE_STEPS):
+            out_f = fused_cn_penta_step(pf, hyper.sigma, out_f)
+        out_c = hyper.run(noisy, WIDE_STEPS)
+        check(torch.isfinite(out_f).all().item() and out_f.shape == (wn, wm),
+              f"(l) the fused trajectories are not finite of shape {(wn, wm)}")
+        checks["hyperdiffusion_vs_cuda_pipeline"] = _allclose(
+            out_f, out_c, 3e-4, 3e-5)
+        return checks
+
     run_case("i", f"DiffusionCN fused, {PDE_STEPS} steps on {n} x {m}",
              diffusion, {"fused_cn_tridiag": 2 * PDE_STEPS,
                          "thomas_constant": PDE_STEPS},
-             "fused_cn_tridiag")
+             ("fused_cn_tridiag",))
     run_case("j", f"fused_cn_penta_step, {PDE_STEPS} steps on {n} x {m}",
              hyperdiffusion, {"fused_cn_penta": PDE_STEPS,
                               "penta_uniform": PDE_STEPS},
-             "fused_cn_penta")
+             ("fused_cn_penta",))
     run_case("k", f"ADI2D auto, {ADI_STEPS} steps on {ADI_N} x {ADI_N} x "
                   f"{ADI_B}", adi, {"thomas_constant": 2 * ADI_STEPS},
-             "thomas_constant")
+             ("thomas_constant",))
+    run_case("l", f"DiffusionCN fused and fused_cn_penta_step, {WIDE_STEPS} "
+                  f"steps each on {WIDE_N} x {WIDE_M} (the global route)",
+             wide, {"fused_cn_tridiag_global": WIDE_STEPS,
+                    "thomas_constant": WIDE_STEPS,
+                    "fused_cn_penta_global": WIDE_STEPS,
+                    "penta_uniform": WIDE_STEPS},
+             ("fused_cn_tridiag_global", "fused_cn_penta_global"))
     return launches
 
 
@@ -718,13 +829,27 @@ def kernel_stats(fn) -> dict:
             "reps": len(times)}
 
 
-def shared_times(key: str, entry: dict, card: str, gen) -> dict:
+def adi_entry(launches: int) -> tuple:
+    """(title, n, m, entry) of case (k)'s shared sweep: each ADI half step
+    solves the periodic CN operator (σ = 0.4) over N = 1024 rows and
+    M = 1024 · 64 lines, on one factor."""
+    from repro_torch.solver import BandedSystem, factorize
+    s = 0.4
+    system = BandedSystem.tridiag(-s, 1 + 2 * s, -s, n=ADI_N, periodic=True,
+                                  mode="constant")
+    return (f"ADI2D half step: periodic tridiag constant over "
+            f"{ADI_N} x {ADI_N * ADI_B}", ADI_N, ADI_N * ADI_B,
+            {"launches": launches, "system": system,
+             "fact": factorize(system, backend="auto")})
+
+
+def shared_times(key: str, title: str, n: int, m: int, entry: dict,
+                 card: str, gen) -> dict:
     """The shared sweep's row: kernel, plain and ``lu_solve`` times."""
     import torch
     from repro_torch.core import dense_penta, dense_tridiag
     from repro_torch.kernels import engine, ops
 
-    title, n, m, _make = main_path_cases()[key]
     system, fact = entry["system"], entry["fact"]
     spec = engine.find_spec(system.bandwidth, system.mode)
     factor = fact.stored.factor if system.periodic else fact.stored
@@ -948,34 +1073,64 @@ def recurrence_entry_times(key: str, card: str, gen) -> dict:
             "entry_fwd_bwd_bound_ms": 8 * words / rate * 1e3}
 
 
-def fused_times(key: str, launches: int, card: str, gen) -> dict:
-    """A fused CN step's row at (512, 2^20), fp32: kernel, plain, and one
-    step of the ``cuda`` pipeline (stencil, shared sweep, corner
-    correction) on the same field, the comparison of
-    ``repro/kernels/fused_cn.py``'s docstring."""
-    import math
+def route_turns(call, reps: int = 10) -> dict:
+    """Each route of a fused step timed in turns on one card: global,
+    on-chip, on-chip, global, ``reps`` launches a turn; ``call(route)``
+    launches one step.  Medians and quartiles of each route's times."""
+    times = {"onchip": [], "global": []}
+    for which in ("global", "onchip", "onchip", "global"):
+        times[which] += event_times(lambda: call(which), reps)
+    out = {}
+    for which, t in times.items():
+        q1, _, q3 = statistics.quantiles(t, n=4)
+        out[which] = {"ms": statistics.median(t), "ms_q1": q1, "ms_q3": q3,
+                      "reps": len(t)}
+    return out
 
+
+def fused_operands(key: str, dtype):
+    """(kind, ops per element, the ``cuda`` pipeline model, operands) of a
+    fused case at (PDE_N, PDE_M): the CN factor of (i) or (j) at σ = 0.4."""
     import torch
     from repro_torch.core import penta
     from repro_torch.kernels import fused_cn, ops
     from repro_torch.pde import DiffusionCN, HyperdiffusionCN
 
-    n, m = PDE_N, PDE_M
+    n = PDE_N
     if key == "i":
-        kind, ops_per_elem = "tridiag", 12
-        model = DiffusionCN(n=n, dt=0.8 / n ** 2, backend="cuda")
-        pf = DiffusionCN(n=n, dt=0.8 / n ** 2, backend="fused").factor()
-        operands = [ops.stack_tridiag_lhs(pf.factor).contiguous(), pf.z,
-                    fused_cn.tridiag_params(pf, model.sigma, torch.float32)]
-    else:
-        kind, ops_per_elem = "penta", 26
-        model = HyperdiffusionCN(n=n, dt=0.8 / n ** 4, backend="cuda",
-                                 mode="uniform")
-        pf = penta.periodic_penta_factor(*(
-            torch.full((n,), v, device="cuda") for v in model.coefficients()))
-        operands = [ops.stack_penta_lhs(pf.factor).contiguous(), pf.Z,
-                    pf.Minv.contiguous(),
-                    fused_cn.penta_params(pf, model.sigma, torch.float32)]
+        model = DiffusionCN(n=n, dt=0.8 / n ** 2, backend="cuda", dtype=dtype)
+        pf = DiffusionCN(n=n, dt=0.8 / n ** 2, backend="fused",
+                         dtype=dtype).factor()
+        return "tridiag", 12, model, [
+            ops.stack_tridiag_lhs(pf.factor).contiguous(), pf.z,
+            fused_cn.tridiag_params(pf, model.sigma, dtype)]
+    model = HyperdiffusionCN(n=n, dt=0.8 / n ** 4, backend="cuda",
+                             mode="uniform", dtype=dtype)
+    pf = penta.periodic_penta_factor(*(
+        torch.full((n,), v, device="cuda", dtype=dtype)
+        for v in model.coefficients()))
+    return "penta", 26, model, [
+        ops.stack_penta_lhs(pf.factor).contiguous(), pf.Z,
+        pf.Minv.contiguous(), fused_cn.penta_params(pf, model.sigma, dtype)]
+
+
+def fused_times(key: str, launches: int, card: str, gen,
+                ptxas: dict) -> dict:
+    """A fused CN step's on-chip row at (512, 2^20), fp32: the on-chip
+    route (``ms``) and the global one (``global_ms``) timed in turns, each
+    with its rate on the floor bytes; the plain version; one step of the
+    ``cuda`` pipeline (stencil, shared sweep, corner correction) on the
+    same field, the comparison of ``repro/kernels/fused_cn.py``'s
+    docstring; the same two routes at fp64 (``fp64``); the on-chip block's
+    chunks, blocks per SM and ptxas report; and the on-chip route at each
+    chunk count of ``CHUNK_SWEEP`` (``chunk_sweep``)."""
+    import math
+
+    import torch
+    from repro_torch.kernels import fused_cn
+
+    n, m = PDE_N, PDE_M
+    kind, ops_per_elem, model, operands = fused_operands(key, torch.float32)
     name = f"fused_cn_{kind}"
     kernel = getattr(fused_cn, f"{name}_cuda")
     plain = getattr(fused_cn, f"{name}_plain")
@@ -983,63 +1138,188 @@ def fused_times(key: str, launches: int, card: str, gen) -> dict:
     c = (torch.sin(2 * math.pi * x)[:, None]
          + 0.3 * torch.randn(n, m, generator=gen, device="cuda",
                              dtype=torch.float64)).float()
-    stats = kernel_stats(lambda: kernel(*operands, c))
+    turns = route_turns(lambda which: kernel(*operands, c, route=which))
     plain_ms = event_ms(lambda: plain(*operands, c), reps=3, warmup=1)
-    got, want = kernel(*operands, c), plain(*operands, c)
-    max_abs_err = (got - want).abs().max().item()
-    check(max_abs_err <= 1e-5 * want.abs().max().item(),
-          f"({key}) {name} kernel vs plain max|Δ| {max_abs_err:.3e}")
-    del got, want
+    errs = {}
+    for which in fused_cn.ROUTES:
+        got = kernel(*operands, c, route=which)
+        want = plain(*operands, c, chunks=fused_cn.sweep_chunks(
+            n, torch.float32, which))
+        errs[which] = (got - want).abs().max().item()
+        check(errs[which] <= 1e-5 * want.abs().max().item(),
+              f"({key}) {name} {which} route vs plain max|Δ| "
+              f"{errs[which]:.3e}")
+        del got, want
+    # the on-chip route at other chunk counts (1: a warp a tile of whole
+    # columns), each held to the chosen count's result
+    bw = 3 if kind == "tridiag" else 5
+    chosen = kernel(*operands, c, route="onchip")
+    sweep = {}
+    for chunks in CHUNK_SWEEP:
+        out = kernel(*operands, c, route="onchip", chunks=chunks)
+        err = rel_err(out, chosen)
+        check(err <= 1e-5, f"({key}) {name} in {chunks} chunks vs "
+                           f"{fused_cn.chunk_count(n, torch.float32)}: "
+                           f"{err:.3e} > 1e-5")
+        del out
+        sweep[chunks] = {
+            **kernel_stats(lambda: kernel(*operands, c, route="onchip",
+                                          chunks=chunks)),
+            "blocks_per_sm": fused_cn.onchip_blocks_per_sm(
+                n, torch.float32, bw, chunks)}
+    del chosen
     _, step = model.step_fn()
     pipeline = kernel_stats(lambda: step(c))
     del c
     torch.cuda.empty_cache()
-    traffic = getattr(fused_cn, f"{kind}_traffic_bytes")(n, m, torch.float32)
-    bound_ms, bound_by = _bound(traffic["fused"], ops_per_elem * n * m, card)
+    rate = card_rates(card)[0]
+    traffic = getattr(fused_cn, f"{kind}_traffic_bytes")
+    floor = traffic(n, m, torch.float32)["fused"]
+    bound_ms, bound_by = _bound(floor, ops_per_elem * n * m, card)
+
+    # fp64, both routes in turns on the same card
+    _, _, _, ops64 = fused_operands(key, torch.float64)
+    c64 = torch.randn(n, m, generator=gen, device="cuda", dtype=torch.float64)
+    turns64 = route_turns(lambda which: kernel(*ops64, c64, route=which))
+    del ops64, c64
+    torch.cuda.empty_cache()
+    floor64 = traffic(n, m, torch.float64)["fused"]
     replaces = ("src/repro/kernels/fused_cn.py:32" if kind == "tridiag"
                 else "src/repro/kernels/fused_cn_penta.py:31")
+    onchip, glob = turns["onchip"], turns["global"]
     return {
         "name": f"{name}/N{n}xM{m}",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_cn.cu",
         "replaces": replaces,
         "launches": launches,
+        "max_abs_err": errs["onchip"],
+        "ms": onchip["ms"], "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes a CN step",
+        "case": key, "ms_q1": onchip["ms_q1"], "ms_q3": onchip["ms_q3"],
+        "reps": onchip["reps"], "gbps": floor / onchip["ms"] / 1e6,
+        "global_ms": glob["ms"], "global_ms_q1": glob["ms_q1"],
+        "global_ms_q3": glob["ms_q3"], "global_gbps": floor / glob["ms"] / 1e6,
+        "global_max_abs_err": errs["global"],
+        "pipeline_ms": pipeline["ms"],
+        "pipeline_ms_q1": pipeline["ms_q1"],
+        "pipeline_ms_q3": pipeline["ms_q3"],
+        "pipeline_bound_ms": _bound(traffic(n, m, torch.float32)[
+            "unfused_pipeline"], ops_per_elem * n * m, card)[0],
+        "fp64": {"ms": turns64["onchip"]["ms"],
+                 "ms_q1": turns64["onchip"]["ms_q1"],
+                 "ms_q3": turns64["onchip"]["ms_q3"],
+                 "global_ms": turns64["global"]["ms"],
+                 "global_ms_q1": turns64["global"]["ms_q1"],
+                 "global_ms_q3": turns64["global"]["ms_q3"],
+                 "bound_ms": floor64 / rate * 1e3,
+                 "gbps": floor64 / turns64["onchip"]["ms"] / 1e6,
+                 "global_gbps": floor64 / turns64["global"]["ms"] / 1e6},
+        "onchip_block": {
+            label: {"chunks": fused_cn.chunk_count(n, dtype),
+                    "threads": 32 * fused_cn.chunk_count(n, dtype),
+                    "smem_bytes": fused_cn.route(n, dtype)[1],
+                    "blocks_per_sm": fused_cn.onchip_blocks_per_sm(
+                        n, dtype, bw)}
+            for label, dtype in (("float32", torch.float32),
+                                 ("float64", torch.float64))},
+        "ptxas": {k: v for k, v in ptxas.items() if k.startswith(name)},
+        "chunk_sweep": sweep,
+    }
+
+
+def fused_global_times(kind: str, launches: int, card: str, gen) -> dict:
+    """The global route's row at case (l)'s (WIDE_N, WIDE_M), fp32: kernel,
+    plain (one chunk) and its rate on the floor bytes; the operator is
+    (l)'s CN factor at σ = 0.4."""
+    import torch
+    from repro_torch.core import penta, tridiag
+    from repro_torch.kernels import fused_cn, ops
+
+    n, m, s = WIDE_N, WIDE_M, 0.4
+    if kind == "tridiag":
+        pf = tridiag.periodic_thomas_factor(*(
+            torch.full((n,), v, device="cuda") for v in (-s, 1 + 2 * s, -s)))
+        operands = [ops.stack_tridiag_lhs(pf.factor).contiguous(), pf.z,
+                    fused_cn.tridiag_params(pf, s, torch.float32)]
+        ops_per_elem = 12
+    else:
+        pf = penta.periodic_penta_factor(*(
+            torch.full((n,), v, device="cuda")
+            for v in (s, -4 * s, 1 + 6 * s, -4 * s, s)))
+        operands = [ops.stack_penta_lhs(pf.factor).contiguous(), pf.Z,
+                    pf.Minv.contiguous(),
+                    fused_cn.penta_params(pf, s, torch.float32)]
+        ops_per_elem = 26
+    name = f"fused_cn_{kind}"
+    kernel = getattr(fused_cn, f"{name}_cuda")
+    plain = getattr(fused_cn, f"{name}_plain")
+    check(fused_cn.route(n, torch.float32)[0] == "global",
+          f"{name}: N = {n} should take the global route")
+    c = torch.randn(n, m, generator=gen, device="cuda")
+    stats = kernel_stats(lambda: kernel(*operands, c))
+    plain_ms = event_ms(lambda: plain(*operands, c), reps=3, warmup=1)
+    got, want = kernel(*operands, c), plain(*operands, c)
+    max_abs_err = (got - want).abs().max().item()
+    check(max_abs_err <= 1e-5 * want.abs().max().item(),
+          f"(l) {name} global route vs plain max|Δ| {max_abs_err:.3e}")
+    del got, want, c
+    torch.cuda.empty_cache()
+    floor = getattr(fused_cn, f"{kind}_traffic_bytes")(n, m)["fused"]
+    bound_ms, bound_by = _bound(floor, ops_per_elem * n * m, card)
+    return {
+        "name": f"{name}_global/N{n}xM{m}",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_cn.cu",
+        "replaces": ("src/repro/kernels/fused_cn.py:32" if kind == "tridiag"
+                     else "src/repro/kernels/fused_cn_penta.py:31"),
+        "launches": launches,
         "max_abs_err": max_abs_err,
         "ms": stats["ms"], "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
         "library_note": "no single PyTorch call computes a CN step",
-        "pipeline_ms": pipeline["ms"],
-        "pipeline_ms_q1": pipeline["ms_q1"],
-        "pipeline_ms_q3": pipeline["ms_q3"],
-        "pipeline_bound_ms": _bound(traffic["unfused_pipeline"],
-                                    ops_per_elem * n * m, card)[0],
-        "case": key, "ms_q1": stats["ms_q1"], "ms_q3": stats["ms_q3"],
-        "reps": stats["reps"],
+        "case": "l", "ms_q1": stats["ms_q1"], "ms_q3": stats["ms_q3"],
+        "reps": stats["reps"], "gbps": floor / stats["ms"] / 1e6,
     }
 
 
-def phase_times(main: dict, card: str) -> list:
+def phase_times(main: dict, card: str, ptxas: dict) -> list:
     """Kernel, plain and library times of each main-path case's kernel at
     its shape; bound from this run's shapes and the card's peaks.  ``main``
-    maps (a)–(e) to their systems and launches, (f)–(k) to launches."""
+    maps (a)–(e) to their systems and launches, (f)–(h) to launches,
+    (i)–(l) to launches by kernel name."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rows = []
+
+    def add(row):
+        rows.append(row)
+        emit({"phase": "times", **row})
+        torch.cuda.empty_cache()
+
     for key, entry in main.items():
         if key in _RECUR_ROWS:
-            rows.append(recurrence_times(key, entry, card, gen))
+            add(recurrence_times(key, entry, card, gen))
         elif key in ("i", "j"):
-            rows.append(fused_times(key, entry, card, gen))
+            add(fused_times(key, entry[f"fused_cn_{'tridiag' if key == 'i'
+                                                   else 'penta'}"],
+                            card, gen, ptxas))
         elif key == "k":
-            continue   # ADI runs the shared sweep, timed at (a)–(c)
+            add(shared_times(key, *adi_entry(entry["thomas_constant"]), card,
+                             gen))
+        elif key == "l":
+            for kind in ("tridiag", "penta"):
+                add(fused_global_times(kind, entry[f"fused_cn_{kind}_global"],
+                                       card, gen))
+        elif entry["system"].mode == "batch":
+            add(batch_times(key, entry, card, gen))
         else:
-            times = batch_times if entry["system"].mode == "batch" else \
-                shared_times
-            rows.append(times(key, entry, card, gen))
-        emit({"phase": "times", **rows[-1]})
-        torch.cuda.empty_cache()
+            title, n, m, _make = main_path_cases()[key]
+            add(shared_times(key, title, n, m, entry, card, gen))
     return rows
 
 
@@ -1079,15 +1359,16 @@ def main() -> int:
         registers = {name: [line.split("Used ")[1].split(",")[0]
                             for line in log.splitlines() if "Used " in line]
                      for name, log in reports.items()}
+        ptxas = ptxas_summary(reports.get("fused_cn", ""))
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "built": sorted(reports), "registers": registers,
-              "dir": str(build.BUILD_DIR)})
+              "fused_cn_ptxas": ptxas, "dir": str(build.BUILD_DIR)})
 
         phase_kernel_vs_plain()
         main = phase_main_path()
         main.update(phase_recurrences())
         main.update(phase_pde())
-        kernels = phase_times(main, card)
+        kernels = phase_times(main, card, ptxas)
         emit({"phase": "summary", "seconds": time.perf_counter() - start,
               "peak_device_bytes": torch.cuda.max_memory_allocated()})
         print(json.dumps({"kernels": kernels}), flush=True)

@@ -18,6 +18,24 @@ reads the field and writes the next one from one kernel.
     arithmetic in the kernel's order (stencil, forward sweep, backward
     sweep, correction), not a call of the periodic solve.
 
+The kernel has two routes, picked from (N, dtype) by ``route``.  The
+on-chip route holds a tile of ``TILE_M`` columns over all N rows in shared
+memory through the three passes, so device memory sees the field read once
+and the next one written once, up to ``onchip_max_rows(dtype)`` rows (1614
+at float32, 807 at float64).  It splits each column's rows into
+``chunk_count(N, dtype)`` chunks swept at once from zero carries, then
+adds each chunk's response to a unit carry (``carry_responses``, from the
+factor alone) times the carry chained over the chunk ends.  Past
+``onchip_max_rows`` the global route walks each whole column three times
+through device memory, for any N the JAX step takes.  The plain versions
+take the chunk count of either route (``sweep_chunks``; the global route's
+is 1, the plain sequential sweep) and repeat its order.  ``LAUNCHES``
+counts ``fused_cn_tridiag`` / ``fused_cn_penta`` (on-chip) and
+``fused_cn_tridiag_global`` / ``fused_cn_penta_global``.  Only the
+``*_cuda`` wrappers take a forced ``route=`` (and the on-chip route's
+``chunks=``), to time one choice against another; a route that cannot
+take N raises.
+
 The JAX package defines no VJP for these steps, so neither does the
 port: a call on an input that requires grad raises.  Storage is float32
 (the JAX steps' type) or float64.
@@ -25,11 +43,24 @@ port: a call on an input that requires grad raises.  Storage is float32
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
+from . import build
 from . import ops as _ops
 
 _FUSED_DTYPES = {torch.float32: 0, torch.float64: 1}
+# The on-chip kernel's geometry, as in ``csrc/fused_cn.cu``: columns of a
+# tile (one warp wide), rows of carry responses stored after its N rows,
+# and at most MAX_CHUNKS row chunks (warps) a block.
+TILE_M = 32
+RESP_ROWS = 4
+MAX_CHUNKS = 16
+#: Bytes of shared memory a block may opt in to on Hopper (sm_90).
+SMEM_PER_BLOCK = 232_448
+ROUTES = ("onchip", "global")
 
 
 def _refuse_grad(name: str, tensors) -> None:
@@ -63,55 +94,196 @@ def penta_params(pf, sigma: float, dtype) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Routes and chunks
+# ---------------------------------------------------------------------------
+
+def _itemsize(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def onchip_max_rows(dtype) -> int:
+    """The largest N whose tile (``TILE_M`` columns and ``RESP_ROWS``
+    response rows over N rows) fits one block's shared memory: 1614 at
+    float32, 807 at float64."""
+    return SMEM_PER_BLOCK // ((TILE_M + RESP_ROWS) * _itemsize(dtype))
+
+
+def route(n: int, dtype) -> tuple:
+    """``("onchip", shared-memory bytes)`` when an on-chip tile over all
+    ``n`` rows fits one block's shared memory, else ``("global", 0)``."""
+    if n <= onchip_max_rows(dtype):
+        return "onchip", n * (TILE_M + RESP_ROWS) * _itemsize(dtype)
+    return "global", 0
+
+
+def chunk_count(n: int, dtype) -> int:
+    """Row chunks (warps) of an on-chip block: one for every 256 bytes of
+    a column, at most ``MAX_CHUNKS``; 8 at N = 512 float32 (the fastest
+    count there on an H100, PERF.md), 16 at float64.  A split column's
+    chunks have at least 64 (float32) or 32 (float64) rows."""
+    return max(1, min(MAX_CHUNKS, n * _itemsize(dtype) // 256))
+
+
+def sweep_chunks(n: int, dtype, which: str | None = None) -> int:
+    """The chunks the kernel sweeps each column in on route ``which``
+    (default: the one ``route`` picks): ``chunk_count`` on chip, 1 on the
+    global route."""
+    which = route(n, dtype)[0] if which is None else which
+    return chunk_count(n, dtype) if which == "onchip" else 1
+
+
+def chunk_bounds(n: int, chunks: int) -> list:
+    """Row bounds ``[s_0 = 0, s_1, …, s_P = n]``: chunk k is rows
+    ``[k·n // P, (k + 1)·n // P)``."""
+    return [k * n // chunks for k in range(chunks + 1)]
+
+
+def carry_responses(kind: str, lhs: torch.Tensor, chunks: int
+                    ) -> torch.Tensor:
+    """Each chunk's sweep of a unit carry, from the factor rows ``lhs``
+    alone, as the kernel computes them (in the storage type, row by row,
+    on the host): tridiag (2, N) — the forward response to
+    d^_{s-1} = 1 and the backward one to y_e = 1; penta (4, N) — the
+    forward responses to g_{s-1} = 1 and to g_{s-2} = 1, the backward ones
+    to y_e = 1 and to y_{e+1} = 1."""
+    rows = lhs.detach().cpu().numpy()
+    n = rows.shape[1]
+    one, zero = rows.dtype.type(1), rows.dtype.type(0)
+    bounds = chunk_bounds(n, chunks)
+    if kind == "tridiag":
+        a, inv, chat = rows
+        out = np.empty((2, n), rows.dtype)
+        for s, e in zip(bounds[:-1], bounds[1:]):
+            r = one
+            for i in range(s, e):
+                r = (zero - a[i] * r) * inv[i]
+                out[0, i] = r
+            r = one
+            for i in range(e - 1, s - 1, -1):
+                r = zero - chat[i] * r
+                out[1, i] = r
+    else:
+        eps, beta, inv_alpha, gamma, delta = rows
+        out = np.empty((4, n), rows.dtype)
+        for s, e in zip(bounds[:-1], bounds[1:]):
+            for v, (v1, v2) in enumerate(((one, zero), (zero, one))):
+                for i in range(s, e):
+                    g = (zero - eps[i] * v2 - beta[i] * v1) * inv_alpha[i]
+                    out[v, i] = g
+                    v1, v2 = g, v1
+            for v, (v1, v2) in enumerate(((one, zero), (zero, one)), 2):
+                for i in range(e - 1, s - 1, -1):
+                    y = zero - gamma[i] * v1 - delta[i] * v2
+                    out[v, i] = y
+                    v1, v2 = y, v1
+    return torch.from_numpy(out).to(lhs.device)
+
+
+# ---------------------------------------------------------------------------
 # Plain versions: the kernels' arithmetic, one row at a time
 # ---------------------------------------------------------------------------
 
-def fused_cn_tridiag_plain(lhs, z, params, c) -> torch.Tensor:
+def _responses(kind: str, lhs: torch.Tensor, chunks: int) -> torch.Tensor:
+    """``carry_responses``, or zeros for one chunk: its carries are zero,
+    so the fix-ups add nothing either way (a response of a long column
+    may overflow, and inf · 0 is no zero)."""
+    if chunks == 1:
+        return torch.zeros((2 if kind == "tridiag" else 4, lhs.shape[1]),
+                           dtype=lhs.dtype, device=lhs.device)
+    return carry_responses(kind, lhs, chunks)
+
+def fused_cn_tridiag_plain(lhs, z, params, c, chunks: int | None = None
+                           ) -> torch.Tensor:
     """lhs (3, N) ``[a, inv_denom, c_hat]`` of A', z (N,), params (8,),
-    c (N, M) -> the next field (N, M)."""
+    c (N, M) -> the next field (N, M), swept in ``chunks`` row chunks
+    (default: ``sweep_chunks(N, dtype)``)."""
     n, m = c.shape
+    chunks = sweep_chunks(n, c.dtype) if chunks is None else chunks
+    bounds = chunk_bounds(n, chunks)
+    spans = list(zip(bounds[:-1], bounds[1:]))
     a, inv, chat = lhs
     sl, sc, sr, v_last, inv_sm = params[:5]
+    resp_f, resp_b = _responses("tridiag", lhs, chunks)
+    zero = torch.zeros((m,), dtype=c.dtype, device=c.device)
     x = torch.empty_like(c)
-    dh = torch.zeros((m,), dtype=c.dtype, device=c.device)
-    for i in range(n):
-        r = sl * c[(i - 1) % n] + sc * c[i] + sr * c[(i + 1) % n]
-        dh = (r - a[i] * dh) * inv[i]
-        x[i] = dh
-    y_last = dh
-    y = torch.zeros_like(dh)
-    for i in range(n - 1, -1, -1):
-        y = x[i] - chat[i] * y
-        x[i] = y
-    corr = (y + v_last * y_last) * inv_sm
-    return x - corr[None, :] * z[:, None]
+    for s, e in spans:                          # forward, zero carry
+        dh = zero
+        for i in range(s, e):
+            r = sl * c[(i - 1) % n] + sc * c[i] + sr * c[(i + 1) % n]
+            dh = (r - a[i] * dh) * inv[i]
+            x[i] = dh
+    carry_in, carry = [], zero                  # d^_{s-1} of each chunk
+    for s, e in spans:
+        carry_in.append(carry)
+        carry = x[e - 1] + resp_f[e - 1] * carry
+    y_last = carry
+    for (s, e), cin in zip(spans, carry_in):    # backward, zero carry
+        y = zero
+        for i in range(e - 1, s - 1, -1):
+            d = x[i] + resp_f[i] * cin
+            y = d - chat[i] * y
+            x[i] = y
+    ycarry_in, ycarry = [zero] * chunks, zero   # y_e of each chunk
+    for q in range(chunks - 1, -1, -1):
+        ycarry_in[q] = ycarry
+        s = spans[q][0]
+        ycarry = x[s] + resp_b[s] * ycarry
+    corr = (ycarry + v_last * y_last) * inv_sm
+    out = torch.empty_like(c)
+    for (s, e), yin in zip(spans, ycarry_in):
+        out[s:e] = ((x[s:e] + resp_b[s:e, None] * yin)
+                    - corr[None, :] * z[s:e, None])
+    return out
 
 
-def fused_cn_penta_plain(lhs, zz, minv, params, c) -> torch.Tensor:
+def fused_cn_penta_plain(lhs, zz, minv, params, c, chunks: int | None = None
+                         ) -> torch.Tensor:
     """lhs (5, N) ``[eps, beta, inv_alpha, gamma, delta]`` of A', Z (N, 4),
-    Minv (4, 4), params (16,), c (N, M) -> the next field; N ≥ 2."""
+    Minv (4, 4), params (16,), c (N, M) -> the next field; N ≥ 2, swept in
+    ``chunks`` row chunks (default: ``sweep_chunks(N, dtype)``)."""
     n, m = c.shape
     if n < 2:
         raise ValueError(f"fused_cn_penta: the 5-point stencil needs N >= 2, "
                          f"got {n}")
+    chunks = sweep_chunks(n, c.dtype) if chunks is None else chunks
+    bounds = chunk_bounds(n, chunks)
+    spans = list(zip(bounds[:-1], bounds[1:]))
     eps, beta, inv_alpha, gamma, delta = lhs
     w = params[:5]
     a0, b0, a1, eN2, dN1, eN1 = params[5:11]
+    ru, rv, rw, rq = _responses("penta", lhs, chunks)
+    zero = torch.zeros((m,), dtype=c.dtype, device=c.device)
     x = torch.empty_like(c)
-    g1 = g2 = torch.zeros((m,), dtype=c.dtype, device=c.device)
-    for i in range(n):
-        r = w[0] * c[(i - 2) % n]
-        for t, off in enumerate((-1, 0, 1, 2), start=1):
-            r = r + w[t] * c[(i + off) % n]
-        g = (r - eps[i] * g2 - beta[i] * g1) * inv_alpha[i]
-        x[i] = g
-        g1, g2 = g, g1
-    y1 = y2 = torch.zeros_like(g1)
-    for i in range(n - 1, -1, -1):
-        y = x[i] - gamma[i] * y1 - delta[i] * y2
-        x[i] = y
-        y1, y2 = y, y1
-    y0, y_1, yN2, yN1 = x[0], x[1], x[n - 2], x[n - 1]
+    for s, e in spans:                          # forward, zero carries
+        g1 = g2 = zero
+        for i in range(s, e):
+            r = w[0] * c[(i - 2) % n]
+            for t, off in enumerate((-1, 0, 1, 2), start=1):
+                r = r + w[t] * c[(i + off) % n]
+            g = (r - eps[i] * g2 - beta[i] * g1) * inv_alpha[i]
+            x[i] = g
+            g1, g2 = g, g1
+    carry_in, G1, G2 = [], zero, zero           # (g_{s-1}, g_{s-2})
+    for s, e in spans:
+        carry_in.append((G1, G2))
+        l1, l2 = e - 1, e - 2
+        G1, G2 = (x[l1] + ru[l1] * G1 + rv[l1] * G2,
+                  x[l2] + ru[l2] * G1 + rv[l2] * G2)
+    yN1 = G1
+    for (s, e), (in1, in2) in zip(spans, carry_in):   # backward
+        y1 = y2 = zero
+        for i in range(e - 1, s - 1, -1):
+            g = x[i] + ru[i] * in1 + rv[i] * in2
+            y = g - gamma[i] * y1 - delta[i] * y2
+            x[i] = y
+            y1, y2 = y, y1
+    ycarry_in, Y1, Y2 = [None] * chunks, zero, zero   # (y_e, y_{e+1})
+    for q in range(chunks - 1, -1, -1):
+        ycarry_in[q] = (Y1, Y2)
+        f0, f1 = spans[q][0], spans[q][0] + 1
+        Y1, Y2 = (x[f0] + rw[f0] * Y1 + rq[f0] * Y2,
+                  x[f1] + rw[f1] * Y1 + rq[f1] * Y2)
+    y0, y_1, yN2 = Y1, Y2, x[n - 2]
     vty = (a0 * yN2 + b0 * yN1, a1 * yN1, eN2 * y0, dN1 * y0 + eN1 * y_1)
     wv = []
     for r_i in range(4):
@@ -122,18 +294,43 @@ def fused_cn_penta_plain(lhs, zz, minv, params, c) -> torch.Tensor:
     corr = zz[:, 0:1] * wv[0]
     for k in range(1, 4):
         corr = corr + zz[:, k:k + 1] * wv[k]
-    return x - corr
+    out = torch.empty_like(c)
+    for (s, e), (yi1, yi2) in zip(spans, ycarry_in):
+        out[s:e] = ((x[s:e] + rw[s:e, None] * yi1 + rq[s:e, None] * yi2)
+                    - corr[s:e])
+    return out
 
 
 # ---------------------------------------------------------------------------
 # Kernels and dispatch
 # ---------------------------------------------------------------------------
 
-def _launch(name: str, bandwidth: int, operands: dict,
-            c: torch.Tensor) -> torch.Tensor:
-    """Validate device, dtype and contiguity, then launch the ``fused_cn``
-    entry point of ``csrc/fused_cn.cu`` for ``bandwidth`` (3 or 5);
-    ``operands`` are lhs, z / Z, [Minv,] params in the C argument order."""
+def launch_name(kind: str, which: str) -> str:
+    """The ``LAUNCHES`` key of ``kind`` ("tridiag" or "penta") on a route."""
+    return f"fused_cn_{kind}" + ("_global" if which == "global" else "")
+
+
+def _check_chunks(name: str, n: int, dtype, bandwidth: int,
+                  chunks: int | None) -> int:
+    """``chunks``, or ``chunk_count(n, dtype)`` when None, once it is one
+    an on-chip block takes: 1..MAX_CHUNKS, each at least one row (two for
+    the penta carries)."""
+    chunks = chunk_count(n, dtype) if chunks is None else chunks
+    if not 1 <= chunks <= MAX_CHUNKS or n < chunks * (bandwidth // 2):
+        raise ValueError(f"{name}: {chunks} chunks do not split N = {n} "
+                         f"(1..{MAX_CHUNKS}, at least {bandwidth // 2} "
+                         "rows each)")
+    return chunks
+
+
+def _launch(kind: str, bandwidth: int, operands: dict, c: torch.Tensor,
+            which: str | None, chunks: int | None) -> torch.Tensor:
+    """Validate device, dtype and contiguity, pick the route (``which``, or
+    ``route(N, dtype)`` when None) and the on-chip route's chunks
+    (``chunks``, or ``chunk_count``), then launch the ``fused_cn`` entry
+    point of ``csrc/fused_cn.cu`` for ``bandwidth`` (3 or 5); ``operands``
+    are lhs, z / Z, [Minv,] params in the C argument order."""
+    name = f"fused_cn_{kind}"
     tensors = [*operands.values(), c]
     if any(not t.is_cuda or t.device != c.device for t in tensors):
         raise ValueError(f"{name}: every operand must lie on one CUDA device")
@@ -144,6 +341,24 @@ def _launch(name: str, bandwidth: int, operands: dict,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: operands must be contiguous")
     n, m = c.shape
+    fits = route(n, c.dtype)[0] == "onchip"
+    which = ("onchip" if fits else "global") if which is None else which
+    if which not in ROUTES:
+        raise ValueError(f"{name}: route must be one of {ROUTES}, got "
+                         f"{which!r}")
+    if which == "onchip":
+        if not fits:
+            raise ValueError(f"{name}: N = {n} is past the on-chip route's "
+                             f"{onchip_max_rows(c.dtype)} rows at {c.dtype}")
+        chunks = _check_chunks(name, n, c.dtype, bandwidth, chunks)
+        if bandwidth == 5 and operands["Z"].data_ptr() % 16:
+            raise ValueError(f"{name}: the on-chip route reads a row of Z "
+                             "as 16-byte loads; Z must be 16-byte aligned")
+    elif chunks is not None:
+        raise ValueError(f"{name}: the global route sweeps whole columns; "
+                         "it takes no chunks")
+    else:
+        chunks = 0   # the C entry point's code for the global route
     x = torch.empty_like(c)
     if m == 0:
         return x
@@ -153,12 +368,33 @@ def _launch(name: str, bandwidth: int, operands: dict,
     fn = _ops._kernel("fused_cn")
     with torch.cuda.device(c.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(_FUSED_DTYPES[c.dtype], bandwidth, *ptrs, c.data_ptr(),
-                x.data_ptr(), n, m, _ops.DEFAULT_THREADS, stream)
+        rc = fn(_FUSED_DTYPES[c.dtype], bandwidth, chunks, *ptrs,
+                c.data_ptr(), x.data_ptr(), n, m, _ops.DEFAULT_THREADS,
+                stream)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    _ops.LAUNCHES[name] = _ops.LAUNCHES.get(name, 0) + 1
+        raise RuntimeError(f"{name} ({which} route) launch failed: CUDA "
+                           f"error {rc}")
+    key = launch_name(kind, which)
+    _ops.LAUNCHES[key] = _ops.LAUNCHES.get(key, 0) + 1
     return x
+
+
+def onchip_blocks_per_sm(n: int, dtype, bandwidth: int,
+                         chunks: int | None = None) -> int:
+    """Blocks of the on-chip kernel (``chunks`` warps each, by default
+    ``chunk_count``) one SM holds at once at this N
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs the card."""
+    chunks = _check_chunks("fused_cn_onchip_blocks", n, dtype, bandwidth,
+                           chunks)
+    fn = build.load("fused_cn").fused_cn_onchip_blocks
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    blocks = ctypes.c_int(0)
+    rc = fn(_FUSED_DTYPES[dtype], bandwidth, n, chunks, ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"fused_cn_onchip_blocks: CUDA error {rc}")
+    return blocks.value
 
 
 def _check_shape(name: str, c: torch.Tensor, min_n: int) -> int:
@@ -168,25 +404,32 @@ def _check_shape(name: str, c: torch.Tensor, min_n: int) -> int:
     return c.shape[0]
 
 
-def fused_cn_tridiag_cuda(lhs, z, params, c) -> torch.Tensor:
-    """Launch the diffusion step of ``csrc/fused_cn.cu``."""
+def fused_cn_tridiag_cuda(lhs, z, params, c, *, route: str | None = None,
+                          chunks: int | None = None) -> torch.Tensor:
+    """Launch the diffusion step of ``csrc/fused_cn.cu`` on the route
+    ``route(N, dtype)`` picks, or on the one forced here; the on-chip
+    route in ``chunk_count`` chunks, or in ``chunks`` (to time others)."""
     n = _check_shape("fused_cn_tridiag", c, 1)
     if lhs.shape != (3, n) or z.shape != (n,) or params.shape != (8,):
         raise ValueError(f"fused_cn_tridiag: lhs (3, {n}), z ({n},) and "
                          "params (8,) expected")
-    return _launch("fused_cn_tridiag", 3,
-                   {"lhs": lhs, "z": z, "params": params}, c)
+    return _launch("tridiag", 3, {"lhs": lhs, "z": z, "params": params}, c,
+                   route, chunks)
 
 
-def fused_cn_penta_cuda(lhs, zz, minv, params, c) -> torch.Tensor:
-    """Launch the hyperdiffusion step of ``csrc/fused_cn.cu``."""
+def fused_cn_penta_cuda(lhs, zz, minv, params, c, *,
+                        route: str | None = None,
+                        chunks: int | None = None) -> torch.Tensor:
+    """Launch the hyperdiffusion step of ``csrc/fused_cn.cu`` as
+    ``fused_cn_tridiag_cuda`` launches the diffusion step."""
     n = _check_shape("fused_cn_penta", c, 2)
     if (lhs.shape != (5, n) or zz.shape != (n, 4) or minv.shape != (4, 4)
             or params.shape != (16,)):
         raise ValueError(f"fused_cn_penta: lhs (5, {n}), Z ({n}, 4), Minv "
                          "(4, 4) and params (16,) expected")
-    return _launch("fused_cn_penta", 5,
-                   {"lhs": lhs, "Z": zz, "Minv": minv, "params": params}, c)
+    return _launch("penta", 5,
+                   {"lhs": lhs, "Z": zz, "Minv": minv, "params": params}, c,
+                   route, chunks)
 
 
 def _dispatch(name: str, cuda_fn, plain_fn, operands: tuple, c):

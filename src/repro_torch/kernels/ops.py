@@ -56,9 +56,10 @@ _ARGTYPES = {
     # dtype, order, reverse, gates, q, out, n, m, threads, stream
     "recurrence_sweep": [_C_INT, _C_INT, _C_INT, ctypes.POINTER(_C_PTR),
                          _C_PTR, _C_PTR, _C_I64, _C_I64, _C_INT, _C_PTR],
-    # dtype, bandwidth, lhs, z, minv, params, c, x, n, m, threads, stream
-    "fused_cn": [_C_INT, _C_INT, _C_PTR, _C_PTR, _C_PTR, _C_PTR, _C_PTR,
-                 _C_PTR, _C_I64, _C_I64, _C_INT, _C_PTR],
+    # dtype, bandwidth, chunks (0: the global route), lhs, z, minv,
+    # params, c, x, n, m, threads, stream
+    "fused_cn": [_C_INT, _C_INT, _C_INT, _C_PTR, _C_PTR, _C_PTR, _C_PTR,
+                 _C_PTR, _C_PTR, _C_I64, _C_I64, _C_INT, _C_PTR],
 }
 
 #: Kernel launches by spec name (``thomas_constant``, ``penta_uniform_t``…).

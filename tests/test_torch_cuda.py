@@ -18,8 +18,9 @@ in fp32, so they are held to the fp32 bar, 1e-5; the recurrence also
 stores h at bf16 (or fp16), so there the bar is 2e-2
 (``tests/test_recurrence.py``'s; 2e-3 at fp16).  The fused CN steps are
 held on operands drawn at random, against the largest term the step
-forms rather than max|plain|.  ``nvcc`` contracts ``a - b*c`` into an
-FMA, so the two agree to a few ulps, not bitwise.
+forms rather than max|plain|, on each of their two routes (on chip up to
+``fused_cn.onchip_max_rows``, global past it).  ``nvcc`` contracts
+``a - b*c`` into an FMA, so the two agree to a few ulps, not bitwise.
 """
 
 from __future__ import annotations
@@ -321,26 +322,93 @@ def _fused_term_scale(kind: str, operands, c) -> float:
                + [(c.abs().max() * weights.abs().max()).item()])
 
 
-# the penta stencil wraps by two rows, so it takes N >= 2
-@pytest.mark.parametrize("kind,n", [(kind, n) for kind in ("tridiag", "penta")
-                                    for n in (1, 2, 3, 600)
-                                    if not (kind == "penta" and n < 2)])
-@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
-def test_fused_cn_kernel_matches_plain(kind, dtype, n, cuda_device):
-    """max|kernel - plain| ≤ tol · (the largest term the step forms)."""
+def _fused_n(n, dtype) -> int:
+    """``n``, or the on-chip route's last N at ``dtype`` ("n_max") and the
+    first past it ("n_max+1")."""
     from repro_torch.kernels import fused_cn
+    if isinstance(n, int):
+        return n
+    return fused_cn.onchip_max_rows(dtype) + (n == "n_max+1")
+
+
+# the penta stencil wraps by two rows, so it takes N >= 2; M = 333 and 1000
+# are ragged and no multiple of the on-chip tile's 32 columns
+@pytest.mark.parametrize("m", (333, 1000))
+@pytest.mark.parametrize("kind,n", [(kind, n) for kind in ("tridiag", "penta")
+                                    for n in (1, 2, 3, 600, "n_max",
+                                              "n_max+1")
+                                    if not (kind == "penta" and n == 1)])
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+def test_fused_cn_kernel_matches_plain(kind, dtype, n, m, cuda_device):
+    """The route the step picks and the global route forced, each against
+    the plain version in its own chunks: max|kernel - plain| ≤ tol · (the
+    largest term the step forms); each launch counted under its route's
+    name, and the on-chip route refused past its rows."""
+    from repro_torch.kernels import fused_cn
+    n = _fused_n(n, dtype)
     operands = _random_fused_operands(kind, n, dtype, seed=n)
-    c = torch.randn(n, 333, dtype=dtype, device=cuda_device)
+    c = torch.randn(n, m, dtype=dtype, device=cuda_device)
     plain = getattr(fused_cn, f"fused_cn_{kind}_plain")
-    name = f"fused_cn_{kind}"
-    want = plain(*operands, c)
-    before = ops.LAUNCHES.get(name, 0)
-    got = getattr(fused_cn, name)(*operands, c)
-    torch.cuda.synchronize()
-    assert ops.LAUNCHES[name] == before + 1
+    kernel = getattr(fused_cn, f"fused_cn_{kind}_cuda")
     tol = 1e-12 if dtype == torch.float64 else 1e-5
-    err = (got - want).abs().max().item()
-    assert err <= tol * _fused_term_scale(kind, operands, c)
+    scale = _fused_term_scale(kind, operands, c)
+    picked = fused_cn.route(n, dtype)[0]
+    for which in (picked, "global"):
+        want = plain(*operands, c,
+                     chunks=fused_cn.sweep_chunks(n, dtype, which))
+        before = dict(ops.LAUNCHES)
+        got = (getattr(fused_cn, f"fused_cn_{kind}")(*operands, c)
+               if which == picked else kernel(*operands, c, route=which))
+        torch.cuda.synchronize()
+        counted = {k: v - before.get(k, 0) for k, v in ops.LAUNCHES.items()
+                   if v != before.get(k, 0)}
+        assert counted == {fused_cn.launch_name(kind, which): 1}
+        assert (got - want).abs().max().item() <= tol * scale
+    if picked == "global":
+        with pytest.raises(ValueError, match="on-chip"):
+            kernel(*operands, c, route="onchip")
+
+
+@pytest.mark.parametrize("chunks", (1, 2, 5, 16))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+@pytest.mark.parametrize("kind", ("tridiag", "penta"))
+def test_fused_cn_onchip_route_in_any_chunks_matches_plain(kind, dtype,
+                                                           chunks,
+                                                           cuda_device):
+    """The on-chip route forced to ``chunks`` row chunks against the plain
+    version in the same chunks, at N = 600 (uneven chunks) and M = 333."""
+    from repro_torch.kernels import fused_cn
+    n = 600
+    operands = _random_fused_operands(kind, n, dtype, seed=chunks)
+    c = torch.randn(n, 333, dtype=dtype, device=cuda_device)
+    got = getattr(fused_cn, f"fused_cn_{kind}_cuda")(
+        *operands, c, route="onchip", chunks=chunks)
+    want = getattr(fused_cn, f"fused_cn_{kind}_plain")(*operands, c,
+                                                       chunks=chunks)
+    torch.cuda.synchronize()
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert (got - want).abs().max().item() <= tol * _fused_term_scale(
+        kind, operands, c)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+@pytest.mark.parametrize("kind", ("tridiag", "penta"))
+def test_fused_cn_routes_agree_at_the_main_path_rows(kind, dtype,
+                                                     cuda_device):
+    """At N = 512 the on-chip route (8 or 16 chunks) and the global route
+    (one chunk) agree within the kernel-vs-plain bar."""
+    from repro_torch.kernels import fused_cn
+    n = 512
+    operands = _random_fused_operands(kind, n, dtype, seed=7)
+    c = torch.randn(n, 4096, dtype=dtype, device=cuda_device)
+    kernel = getattr(fused_cn, f"fused_cn_{kind}_cuda")
+    assert fused_cn.route(n, dtype)[0] == "onchip"
+    onchip = kernel(*operands, c, route="onchip")
+    glob = kernel(*operands, c, route="global")
+    torch.cuda.synchronize()
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert (onchip - glob).abs().max().item() <= tol * _fused_term_scale(
+        kind, operands, c)
 
 
 @pytest.mark.parametrize("kind", ("tridiag", "penta"))
