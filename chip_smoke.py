@@ -10,8 +10,12 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
   2. build every kernel from the checkout's sources (``build/repro_torch/``);
   3. each kernel against its plain-torch version on the card, for every
      sweep variant and storage type, at main-path and edge shapes (the
-     batch sweep with distinct diagonals in every system).  The
-     gated-recurrence kernel (4 specs × fp32, fp64, bf16, fp16) and both
+     batch sweep with distinct diagonals in every system; the shared
+     sweep on the route it picks, on the partitioned route and, up to
+     N = 4096, on the serial kernel forced, each in its own row blocks and
+     chunks, also at its on-chip route's last N and the first past it,
+     where a forced on-chip launch must raise).  The gated-recurrence
+     kernel (4 specs × fp32, fp64, bf16, fp16) and both
      fused CN steps (fp32, fp64) are held the same way, with distinct
      operands in every column, at N ∈ {1, 2, 3, 600}, a ragged M and one
      full-size grid; the fused steps on operands drawn at random, against
@@ -46,7 +50,13 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
      the floor bytes, the block's occupancy and ptxas report, the on-chip
      route at 1–16 row chunks, and one step of the ``cuda`` pipeline at
      the same shape; (k)'s row times the shared sweep at the ADI half
-     step's shape, and (l)'s rows the global route at its own;
+     step's shape, and (l)'s rows the global route at its own.  Each
+     shared row ((a), (b), (c), (k)) gives its route (``sweep_route``),
+     times it in turns with the serial kernel forced (``serial_ms``),
+     with the rate on the floor bytes, the tile's blocks per SM and
+     ptxas report; (a) and (k) also at 1–16 row chunks and at 16- and
+     32-column tiles, the on-chip rows the partitioned route forced, and
+     (c) each of the partitioned route's four launches alone;
   7. one summary line (the run's seconds and peak device memory) and one
      ``{"kernels": [...]}`` line.
 
@@ -56,6 +66,7 @@ non-zero before it; a machine without CUDA fails, it never runs on the CPU.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import statistics
@@ -252,15 +263,25 @@ def fused_shapes(dtype) -> tuple:
     return _FUSED_SHAPES + ((n_max, 1000), (n_max + 1, 1000))
 
 
+def _template_args(mangled: str) -> str:
+    """``fLi2ELi32ELb0E`` -> ``f,2,32,0``: a mangled template argument
+    list, types as their letter (bf16 as ``bf16``) and integers as such."""
+    return ",".join(num or ("bf16" if bf else letter) for num, bf, letter in
+                    re.findall(r"L[a-z](\d+)E|(\d+__nv_bfloat16)|([a-z])",
+                               mangled))
+
+
 def ptxas_summary(log: str) -> dict:
     """Registers, spills and shared memory of each kernel in a
-    ``-Xptxas -v`` report, by kernel name and type (``<f>``, ``<d>``)."""
+    ``-Xptxas -v`` report, by kernel name and template arguments
+    (``fused_cn_tridiag_tile_kernel<f>``,
+    ``shared_tile_kernel<f,f,1,32,0>``)."""
     out, name = {}, None
     for line in log.splitlines():
         found = re.search(r"(?:entry function|properties for) .*?\d"
-                          r"([a-z][a-z_]*_kernel)I([a-z])E", line)
+                          r"([a-z][a-z_]*_kernel)I(.+?)EEv", line)
         if found:
-            name = f"{found.group(1)}<{found.group(2)}>"
+            name = f"{found.group(1)}<{_template_args(found.group(2))}>"
             out.setdefault(name, {})
             continue
         if name is None:
@@ -288,6 +309,38 @@ def ops_per_row(spec) -> int:
     return 4 * spec.order + 1
 
 
+def shared_edge_shapes(storage) -> tuple:
+    """The shared sweep's on-chip route's last N at ``storage`` and the
+    first N past it (the partitioned route), at M = 1000, not a multiple
+    of a tile's columns."""
+    from repro_torch.kernels import ops
+    n_max = ops.onchip_max_rows(storage)
+    return (n_max, 1000), (n_max + 1, 1000)
+
+
+def shared_routes_vs_plain(name, label, spec, lhs, rhs, eps, compare) -> None:
+    """The shared sweep on the route it picks, on the partitioned route and
+    (up to N = 4096, where its plain version is a sequential loop of N
+    steps; phase ``times`` holds it at (c)'s full size) on the serial
+    kernel forced, each against the plain version in the same row blocks
+    and chunks; each solve counted once under the spec's name."""
+    from repro_torch.kernels import ops
+    n, m = rhs.shape
+    picked = ops.shared_route(n, rhs.dtype)
+    serial = ("serial",) if n <= 4096 else ()
+    for which in dict.fromkeys((picked.name, "partition") + serial):
+        r = ops.shared_route(n, rhs.dtype, which)
+        ops.reset_launches()
+        got = ops.shared_sweep_cuda(spec, lhs, rhs, eps, route=which)
+        counted = dict(ops.LAUNCHES)
+        check(counted == {name: 1}, f"{name}/{label} N={n} {which}: "
+                                    f"launches {counted}")
+        want = ops.shared_sweep_plain(spec, lhs, rhs, eps,
+                                      blocks=r.row_blocks, chunks=r.chunks)
+        compare(f"{name}/{which}", label, n, m, got, want)
+        del got, want
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -302,6 +355,7 @@ def phase_kernel_vs_plain() -> None:
                 "float16": (torch.float32, torch.float16)}
     shapes = ((512, 65536), (16384, 4096), (1, 1), (2, 3), (3, 130),
               (200, 1000))
+    t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     factors, worst = {}, {}
 
@@ -334,7 +388,10 @@ def phase_kernel_vs_plain() -> None:
                             _RECUR_TOLERANCE[label])
                     del gates, q
                 continue
-            for n, m in shapes:
+            # the shared sweep also at its on-chip route's last N and the
+            # first past it
+            for n, m in (shapes if spec.layout == "batch"
+                         else shapes + shared_edge_shapes(storage)):
                 if spec.layout == "batch":
                     diags, rhs = random_batch_operands(spec, n, m, storage,
                                                        gen)
@@ -352,9 +409,19 @@ def phase_kernel_vs_plain() -> None:
                 rhs = torch.randn(n, m, generator=gen, device="cuda",
                                   dtype=dtype)
                 lhs, rhs, eps = sweep_operands(spec, f, rhs, storage)
-                compare(name, label, n, m,
-                        ops.shared_sweep_cuda(spec, lhs, rhs, eps),
-                        ops.shared_sweep_plain(spec, lhs, rhs, eps))
+                shared_routes_vs_plain(name, label, spec, lhs, rhs, eps,
+                                       compare)
+                if n > ops.onchip_max_rows(storage):
+                    try:
+                        ops.shared_sweep_cuda(spec, lhs, rhs, eps,
+                                              route="onchip")
+                    except ValueError:
+                        pass
+                    else:
+                        raise SmokeFailure(f"{name}/{label} N={n}: the "
+                                           "on-chip route took an N past "
+                                           "its shared memory")
+                del lhs, rhs, eps
         torch.cuda.empty_cache()
     for kind in ("tridiag", "penta"):
         name = f"fused_cn_{kind}"
@@ -397,12 +464,18 @@ def phase_kernel_vs_plain() -> None:
                                            "its shared memory")
                 del operands, c
             torch.cuda.empty_cache()
-    emit({"phase": "kernel_vs_plain", "shapes": [list(s) for s in shapes],
+    emit({"phase": "kernel_vs_plain", "seconds": time.perf_counter() - t0,
+          "shapes": [list(s) for s in shapes],
           "recurrence_shapes": [list(s) for s in _RECUR_SHAPES],
           "fused_shapes": {label: [list(s) for s in fused_shapes(
               getattr(torch, label))] for label in ("float32", "float64")},
           "tolerance": _TOLERANCE, "recurrence_tolerance": _RECUR_TOLERANCE,
           "fused_measure": "max|kernel - plain| / the largest term formed",
+          "shared_routes": ["picked", "partition", "serial (N <= 4096)"],
+          "shared_edge_shapes": {
+              label: [list(s) for s in shared_edge_shapes(storage)]
+              for label, (_, storage) in storages.items()
+              if label != "float16"},
           "max_rel_err": worst})
 
 
@@ -843,9 +916,28 @@ def adi_entry(launches: int) -> tuple:
              "fact": factorize(system, backend="auto")})
 
 
+def shared_ptxas(ptxas: dict, order: int) -> dict:
+    """The ptxas report of the shared sweep's fp32 kernels of one carry
+    order: tile (``<f,f,order,tile,scale_fwd>``), coefficients, summary,
+    serial and chain."""
+    out = {}
+    for name, report in ptxas.items():
+        args = name.split("<")[-1].rstrip(">").split(",")
+        fp32 = args[:3] == ["f", "f", str(order)] or args == ["f", str(order)]
+        if name.startswith("shared_") and fp32:
+            out[name] = report
+    return out
+
+
 def shared_times(key: str, title: str, n: int, m: int, entry: dict,
-                 card: str, gen) -> dict:
-    """The shared sweep's row: kernel, plain and ``lu_solve`` times."""
+                 card: str, gen, ptxas: dict) -> dict:
+    """The shared sweep's row, fp32: the route it takes (``ms``) and the
+    serial kernel forced (``serial_ms``) timed in turns, each with
+    its rate on the floor bytes; the plain version in the route's chunks;
+    ``lu_solve``; the tile's blocks per SM and ptxas report; at (a) and (k)
+    the route at each chunk count of ``CHUNK_SWEEP`` and both tile
+    widths; on chip the partitioned route forced (``partition_ms``), at (c)
+    each of the partitioned route's four launches alone (``stage_ms``)."""
     import torch
     from repro_torch.core import dense_penta, dense_tridiag
     from repro_torch.kernels import engine, ops
@@ -855,16 +947,67 @@ def shared_times(key: str, title: str, n: int, m: int, entry: dict,
     factor = fact.stored.factor if system.periodic else fact.stored
     rhs = torch.randn(n, m, generator=gen, device="cuda")
     lhs, rhs, eps = sweep_operands(spec, factor, rhs, torch.float32)
-    stats = kernel_stats(lambda: ops.shared_sweep_cuda(spec, lhs, rhs, eps))
+    picked = ops.shared_route(n, torch.float32)
+
+    def kernel(**kw):
+        return ops.shared_sweep_cuda(spec, lhs, rhs, eps, **kw)
+
+    turns = route_turns(lambda which: kernel(route=which), "serial",
+                        picked.name)
+    new, serial = turns[picked.name], turns["serial"]
     plain_reps = 3 if n > 4096 else 5
     plain_ms = event_ms(lambda: ops.shared_sweep_plain(spec, lhs, rhs, eps),
                         reps=plain_reps, warmup=1)
-    got = ops.shared_sweep_cuda(spec, lhs, rhs, eps)
-    want = ops.shared_sweep_plain(spec, lhs, rhs, eps)
-    max_abs_err = (got - want).abs().max().item()
-    check(max_abs_err <= 1e-5 * want.abs().max().item(),
-          f"({key}) kernel vs plain max|Δ| {max_abs_err:.3e}")
-    del got, want
+    errs = {}
+    for which in (picked.name, "serial"):
+        r = ops.shared_route(n, torch.float32, which)
+        got = kernel(route=which)
+        want = ops.shared_sweep_plain(spec, lhs, rhs, eps,
+                                      blocks=r.row_blocks, chunks=r.chunks)
+        errs[which] = (got - want).abs().max().item()
+        check(errs[which] <= 1e-5 * want.abs().max().item(),
+              f"({key}) {which} route vs plain max|Δ| {errs[which]:.3e}")
+        del got, want
+    floor = spec.traffic_bytes(n, m, torch.float32)
+    rows = n // picked.row_blocks
+    extra = {"blocks_per_sm": ops.shared_tile_blocks_per_sm(
+        -(-n // picked.row_blocks), torch.float32, spec.order, picked.chunks,
+        picked.tile_m)}
+    if key in ("a", "k"):
+        # the route at other chunk counts, each held to the chosen count's
+        chosen = kernel()
+        sweep = {}
+        for chunks in CHUNK_SWEEP:
+            err = rel_err(kernel(chunks=chunks), chosen)
+            check(err <= 1e-5, f"({key}) shared sweep in {chunks} chunks vs "
+                               f"{picked.chunks}: {err:.3e} > 1e-5")
+            sweep[chunks] = {
+                **kernel_stats(lambda: kernel(chunks=chunks)),
+                "blocks_per_sm": ops.shared_tile_blocks_per_sm(
+                    rows, torch.float32, spec.order, chunks, picked.tile_m)}
+        extra["chunk_sweep"] = sweep
+        if key in ("a", "k"):
+            tiles = {}
+            for tile_m in (16, 32):
+                err = rel_err(kernel(tile_m=tile_m), chosen)
+                check(err <= 1e-5, f"({key}) {tile_m}-column tile vs "
+                                   f"{picked.tile_m}: {err:.3e} > 1e-5")
+                tiles[tile_m] = {
+                    **kernel_stats(lambda: kernel(tile_m=tile_m)),
+                    "blocks_per_sm": ops.shared_tile_blocks_per_sm(
+                        rows, torch.float32, spec.order, picked.chunks,
+                        tile_m)}
+            extra["tile_sweep"] = tiles
+        del chosen
+    if picked.name == "partition":
+        stages = ops.partition_stages(spec, lhs, rhs, eps)
+        extra["stage_ms"] = {k: kernel_stats(f)["ms"]
+                             for k, f in stages.items()}
+        del stages
+    else:
+        # the partitioned route forced at this N, timed alone
+        extra["partition_ms"] = kernel_stats(
+            lambda: kernel(route="partition"))["ms"]
     bound_ms, bound_by = bound(spec, n, m, card)
     # yardstick only: one PyTorch call solving the same dense system
     # from a precomputed LU (the port never calls it)
@@ -883,12 +1026,20 @@ def shared_times(key: str, title: str, n: int, m: int, entry: dict,
         "also_replaces": ["src/repro/kernels/engine.py:777",
                           "src/repro/kernels/engine.py:795"],
         "launches": entry["launches"],
-        "max_abs_err": max_abs_err,
-        "ms": stats["ms"], "plain_ms": plain_ms,
+        "max_abs_err": errs[picked.name],
+        "ms": new["ms"], "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms,
-        "case": key, "title": title, "ms_q1": stats["ms_q1"],
-        "ms_q3": stats["ms_q3"], "reps": stats["reps"],
+        "case": key, "title": title, "ms_q1": new["ms_q1"],
+        "ms_q3": new["ms_q3"], "reps": new["reps"],
+        "sweep_route": dataclasses.asdict(picked),
+        "gbps": floor / new["ms"] / 1e6,
+        "serial_ms": serial["ms"], "serial_ms_q1": serial["ms_q1"],
+        "serial_ms_q3": serial["ms_q3"],
+        "serial_gbps": floor / serial["ms"] / 1e6,
+        "serial_max_abs_err": errs["serial"],
+        "ptxas": shared_ptxas(ptxas, spec.order),
+        **extra,
     }
 
 
@@ -1073,12 +1224,12 @@ def recurrence_entry_times(key: str, card: str, gen) -> dict:
             "entry_fwd_bwd_bound_ms": 8 * words / rate * 1e3}
 
 
-def route_turns(call, reps: int = 10) -> dict:
-    """Each route of a fused step timed in turns on one card: global,
-    on-chip, on-chip, global, ``reps`` launches a turn; ``call(route)``
-    launches one step.  Medians and quartiles of each route's times."""
-    times = {"onchip": [], "global": []}
-    for which in ("global", "onchip", "onchip", "global"):
+def route_turns(call, first: str, second: str, reps: int = 10) -> dict:
+    """Two routes of a kernel timed in turns on one card: first, second,
+    second, first, ``reps`` launches a turn; ``call(route)`` launches once.
+    Medians and quartiles of each route's times."""
+    times = {first: [], second: []}
+    for which in (first, second, second, first):
         times[which] += event_times(lambda: call(which), reps)
     out = {}
     for which, t in times.items():
@@ -1138,7 +1289,8 @@ def fused_times(key: str, launches: int, card: str, gen,
     c = (torch.sin(2 * math.pi * x)[:, None]
          + 0.3 * torch.randn(n, m, generator=gen, device="cuda",
                              dtype=torch.float64)).float()
-    turns = route_turns(lambda which: kernel(*operands, c, route=which))
+    turns = route_turns(lambda which: kernel(*operands, c, route=which),
+                        "global", "onchip")
     plain_ms = event_ms(lambda: plain(*operands, c), reps=3, warmup=1)
     errs = {}
     for which in fused_cn.ROUTES:
@@ -1180,7 +1332,8 @@ def fused_times(key: str, launches: int, card: str, gen,
     # fp64, both routes in turns on the same card
     _, _, _, ops64 = fused_operands(key, torch.float64)
     c64 = torch.randn(n, m, generator=gen, device="cuda", dtype=torch.float64)
-    turns64 = route_turns(lambda which: kernel(*ops64, c64, route=which))
+    turns64 = route_turns(lambda which: kernel(*ops64, c64, route=which),
+                          "global", "onchip")
     del ops64, c64
     torch.cuda.empty_cache()
     floor64 = traffic(n, m, torch.float64)["fused"]
@@ -1295,10 +1448,11 @@ def phase_times(main: dict, card: str, ptxas: dict) -> list:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rows = []
+    t0 = time.perf_counter()
 
     def add(row):
         rows.append(row)
-        emit({"phase": "times", **row})
+        emit({"phase": "times", "seconds": time.perf_counter() - t0, **row})
         torch.cuda.empty_cache()
 
     for key, entry in main.items():
@@ -1310,7 +1464,7 @@ def phase_times(main: dict, card: str, ptxas: dict) -> list:
                             card, gen, ptxas))
         elif key == "k":
             add(shared_times(key, *adi_entry(entry["thomas_constant"]), card,
-                             gen))
+                             gen, ptxas))
         elif key == "l":
             for kind in ("tridiag", "penta"):
                 add(fused_global_times(kind, entry[f"fused_cn_{kind}_global"],
@@ -1319,7 +1473,7 @@ def phase_times(main: dict, card: str, ptxas: dict) -> list:
             add(batch_times(key, entry, card, gen))
         else:
             title, n, m, _make = main_path_cases()[key]
-            add(shared_times(key, title, n, m, entry, card, gen))
+            add(shared_times(key, title, n, m, entry, card, gen, ptxas))
     return rows
 
 
@@ -1359,10 +1513,11 @@ def main() -> int:
         registers = {name: [line.split("Used ")[1].split(",")[0]
                             for line in log.splitlines() if "Used " in line]
                      for name, log in reports.items()}
-        ptxas = ptxas_summary(reports.get("fused_cn", ""))
+        ptxas = ptxas_summary(reports.get("fused_cn", "")
+                              + reports.get("shared_sweep", ""))
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "built": sorted(reports), "registers": registers,
-              "fused_cn_ptxas": ptxas, "dir": str(build.BUILD_DIR)})
+              "ptxas": ptxas, "dir": str(build.BUILD_DIR)})
 
         phase_kernel_vs_plain()
         main = phase_main_path()

@@ -5,44 +5,96 @@
 // that compute this one function at three VMEM tilings:
 //   _shared_resident_kernel (engine.py:760), _shared_streamed_kernel
 //   (engine.py:777), _shared_fused_kernel (engine.py:795).
-// They tile N only because a TPU core has 12 MiB of VMEM; a Hopper thread
-// walks all N rows out of device memory, so one kernel serves all three.
 //
 // Each pass is  out_i = (in_i - sum_t coef_t(i) * carry_{lag_t}) * scale(i)
 // with the (row, lag) terms in subtraction order and the scale row taken
 // from the pass table (repro_torch/kernels/engine.py::_PASS_TABLE) and
 // handed in as a SweepDesc: one template serves tridiagonal and
 // pentadiagonal, forward and transposed, constant and uniform variants.
+// Storage float, double or bf16 (bf16 computes in float); the output is at
+// the compute type.  Built without --use_fast_math; nvcc contracts a - b*c
+// into FMAs, so the kernels and their plain version agree to a few ulps.
 //
-// Design (the paper's CUDA mapping):
-//   * one thread per system m; a warp reads 32 consecutive m of row i, so
-//     every RHS access is coalesced; blocks tile M and the ragged edge of
-//     M is masked (masked threads still reach every __syncthreads);
-//   * the factor is staged in shared memory chunk_n rows at a time, read
-//     once per block and broadcast to its threads; the uniform eps value
-//     is staged as one more row, read from a 1-element device tensor;
-//   * carries stay in registers and start at zero at both ends, so the
-//     first and last rows need no special case;
-//   * the forward pass ascends and writes the intermediate into the
-//     output; the backward pass descends and overwrites it in place;
-//   * storage float, double or bf16 (bf16 computes in float); the output
-//     is at the compute type; offsets are 64-bit (N*M overflows int32).
+// Bound: device-memory bytes.  The function needs 2NM + kN words (each RHS
+// word read once, each x word written once, k factor rows); its 4*order + 1
+// operations per element are far below that at the card's rates.
 //
-// Bound: device-memory bytes.  The function needs 2NM + kN words (each
-// RHS word read once, each x word written once, k factor rows).  This
-// simple design moves about 4NM: the intermediate round-trips through the
-// output (write, read back, write).  Reaching the floor is later work.
+// Three routes, picked by repro_torch/kernels/ops.py::shared_route from
+// (N, dtype); every solve counts one launch under its spec's name.
+//
+// On-chip route, N <= N_max (1614 at fp32 and bf16, 807 at fp64):
+//   * a block owns a tile of TILE columns (32; 16 when forced, to time it)
+//     over all N rows in dynamic shared memory at the compute type, with
+//     2 * order rows of carry responses after it (one per carry lag, per
+//     pass); the route's N_max leaves room for 4 such rows at 32 columns,
+//     the 232,448 bytes a block may opt in to;
+//   * P row chunks, one group of TILE threads each (a warp at TILE = 32);
+//     a thread owns one column of its chunk and alone loads it (cp.async,
+//     4 or 8 bytes, in GROUPS commit groups, so its forward sweep starts
+//     on the first group while the later ones are in flight; bf16 rides
+//     plain loads, converted to float as they are stored, since cp.async
+//     copies 4, 8 or 16 bytes and a ragged M leaves odd bf16 rows 2-byte
+//     aligned), sweeps it forward and backward in place, and writes x to
+//     device memory once: the 2NM floor;
+//   * the split sweep: each chunk is swept from zero carries; after a
+//     barrier the carries are chained over the chunk ends; each row is then
+//     fixed up by its chunk's response to a unit carry times the carry the
+//     chunk really receives.  The response of a pass to a unit carry at lag
+//     l is that pass swept over zeros, r_i = (0 - sum_t coef_t(i) *
+//     r_{i-lag_t}) * scale(i): even lanes run the one to lag 1 beside
+//     their own sweep, odd lanes (order 2) the one to lag 2, on the
+//     coefficients the sweep loads anyway, and lanes 0 and 1 store them.
+//     A chain is N / P steps long, not 2N, and the SM runs P times the
+//     warps of one thread a column;
+//   * the factor rows and the uniform eps are read as broadcasts through
+//     the read-only cache, and the pass table's shape (lags by direction,
+//     one scaled pass) is compiled in, so a step is loads and FMAs;
+//   * 3 blocks an SM at N = 512 fp32 (8 chunks), 1 at N = 1024 (16): the
+//     times and what holds them at 1.7-3.1x the bound are in PERF.md.
+//
+// Partitioned route, N > N_max: each column is cut into B row blocks of
+// about R rows (512 at fp32 and bf16, 256 at fp64; a 68-72 KB tile):
+//   K0 (coefficients, B blocks, from the factor alone, once per call): each
+//     row block's forward unit responses at its end (phi), the backward
+//     sweep of those responses at its start (w), its backward unit
+//     responses at its start (psi), and the summary weights: the adjoint
+//     of the block's forward sweep from its `order` end rows, and of its
+//     backward-after-forward sweep from its `order` start rows;
+//   K1 (summarise): the block's forward end values and backward start
+//     values from zero carries are linear in its rows of the RHS, so one
+//     thread a column sums weight * rhs over the block's rows: 2 * order
+//     words per column per block written, NM read with no dependent chain;
+//   K2 (chain): one thread a column walks the blocks up to chain the forward
+//     carries, then down to chain the backward ones;
+//   K3 (finish): each block swept on chip as above from its true entry
+//     carries, x written once.
+// About 3NM words plus O(B M), against the 2NM floor; no host sync.
+//
+// Serial route (forced only, to time against): the first design, one
+// thread per system walking all N rows, the factor staged in shared memory
+// SERIAL_CHUNK_N rows at a time; the intermediate round-trips through the
+// output, about 4NM words.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
+constexpr int MAX_CHUNKS = 16;       // row chunks (thread groups) a block
+constexpr size_t SMEM_MAX = 232448;  // shared memory a block may opt in to
+constexpr int GROUPS = 4;            // cp.async commit groups per chunk
+constexpr int UNROLL = 4;            // rows a backward step loads at once
+constexpr int SERIAL_THREADS = 256;
+constexpr int SERIAL_CHUNK_N = 512;  // factor rows the serial kernel stages
+
 struct PassDesc {
-  int src[2];  // shared-memory row of each term's coefficient (-1: none)
+  int src[2];  // factor row of each term's coefficient (-1: none; the
+               // number of factor rows: the eps operand)
   int lag[2];  // carry lag of each term (1 or 2)
-  int scale;   // shared-memory row of the scale (-1: unscaled pass)
+  int scale;   // factor row of the scale (-1: unscaled pass)
 };
 
 struct SweepDesc {
@@ -59,6 +111,10 @@ __device__ __forceinline__ float to_compute<float, __nv_bfloat16>(
     __nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+
+// ---------------------------------------------------------------------------
+// Serial route: the first design, one thread a column
+// ---------------------------------------------------------------------------
 
 // Stage rows [base, base + len) of the (rows, n) factor, plus the eps row
 // when there is one, into coef[(rows + 1) * chunk_n] at the compute type.
@@ -91,12 +147,13 @@ __device__ __forceinline__ C sweep_step(C acc, const C* coef, int chunk_n,
 }
 
 template <typename S, typename C, int ORDER>
-__global__ void shared_sweep_kernel(const S* __restrict__ lhs, int rows,
-                                    const S* __restrict__ rhs, C* out,
-                                    const S* __restrict__ eps, int64_t n,
-                                    int64_t m, SweepDesc desc, int chunk_n) {
+__global__ void shared_serial_kernel(const S* __restrict__ lhs, int rows,
+                                     const S* __restrict__ rhs, C* out,
+                                     const S* __restrict__ eps, int64_t n,
+                                     int64_t m, SweepDesc desc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   C* coef = reinterpret_cast<C*>(smem_raw);
+  constexpr int chunk_n = SERIAL_CHUNK_N;
 
   const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const bool active = j < m;
@@ -147,6 +204,730 @@ __global__ void shared_sweep_kernel(const S* __restrict__ lhs, int rows,
   }
 }
 
+// ---------------------------------------------------------------------------
+// On-chip and partitioned routes: tiles held in shared memory
+// ---------------------------------------------------------------------------
+
+// One pass with its coefficient rows resolved to pointers, each with a row
+// stride (0 for the eps operand: one value).  The pass table fixes the rest
+// (checked on the host by desc_fits): a forward pass subtracts its carry at
+// lag `order` first, then lag 1; a backward pass lag 1, then lag 2; exactly
+// one of the two passes is scaled.  So lags and scale are compile-time.
+template <typename S_, typename C_, int ORDER_, bool FWD, bool SCALED_>
+struct Pass {
+  using S = S_;
+  using C = C_;
+  static constexpr int ORDER = ORDER_;
+  static constexpr bool LAG2_FIRST = FWD && ORDER_ == 2;  // term 0 at lag 2
+  static constexpr bool SCALED = SCALED_;
+  const S* row[2];
+  int stride[2];
+  const S* scale;
+
+  __device__ Pass(const PassDesc& d, const S* lhs, const S* eps, int lhs_rows,
+                  int64_t n)
+      : scale(SCALED_ ? lhs + (int64_t)d.scale * n : nullptr) {
+    for (int t = 0; t < 2; ++t) {
+      const bool is_eps = d.src[t] == lhs_rows;
+      row[t] = is_eps ? eps : lhs + (int64_t)(d.src[t] < 0 ? 0 : d.src[t]) * n;
+      stride[t] = is_eps ? 0 : 1;
+    }
+  }
+};
+
+// The coefficients of one row of a pass, at the compute type.
+template <typename C>
+struct Row {
+  C c0, c1, s;
+};
+
+template <typename P>
+__device__ __forceinline__ Row<typename P::C> load_row(const P& p, int64_t i) {
+  using C = typename P::C;
+  using S = typename P::S;
+  Row<C> k;
+  k.c0 = to_compute<C, S>(__ldg(p.row[0] + i * p.stride[0]));
+  k.c1 = P::ORDER == 1 ? C(0)
+                       : to_compute<C, S>(__ldg(p.row[1] + i * p.stride[1]));
+  k.s = P::SCALED ? to_compute<C, S>(__ldg(p.scale + i)) : C(1);
+  return k;
+}
+
+// (acc - c0 carry_{lag0} - c1 carry_{lag1}) * scale, carries (h1, h2)
+template <typename P, typename C = typename P::C>
+__device__ __forceinline__ C apply(const P&, const Row<C>& k, C acc, C h1,
+                                   C h2) {
+  acc = acc - k.c0 * (P::LAG2_FIRST ? h2 : h1);
+  if (P::ORDER == 2) acc = acc - k.c1 * (P::LAG2_FIRST ? h1 : h2);
+  if (P::SCALED) acc = acc * k.s;
+  return acc;
+}
+
+// first row of part k of p parts over n rows (ops.chunk_bounds)
+__device__ __forceinline__ int part_begin(int k, int n, int p) {
+  return (int)(((int64_t)k * n) / p);
+}
+
+// first row of commit group g of the chunk [s, e)
+__device__ __forceinline__ int group_begin(int g, int s, int e) {
+  return s + (e - s) * g / GROUPS;
+}
+
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+               "l"(src), "n"(sizeof(T))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most `pending` of this thread's newest groups are in flight
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
+}
+static_assert(GROUPS == 4, "cp_async_wait covers 0..3 pending groups");
+
+// Load this thread's rows [s, e) of its column (src[i * m]) into its column
+// of the tile (col[i * TILE]): cp.async in GROUPS commit groups when the
+// storage is the compute type, else plain loads converted as stored.
+template <typename S, typename C, int TILE>
+__device__ __forceinline__ void load_rows(C* col, const S* src, int s, int e,
+                                          int64_t m) {
+  if constexpr (std::is_same<S, C>::value) {
+    for (int g = 0; g < GROUPS; ++g) {
+      for (int i = group_begin(g, s, e); i < group_begin(g + 1, s, e); ++i) {
+        cp_async(col + i * TILE, src + (int64_t)i * m);
+      }
+      cp_async_commit();
+    }
+  } else {
+#pragma unroll 8
+    for (int i = s; i < e; ++i) {
+      col[i * TILE] = to_compute<C, S>(src[(int64_t)i * m]);
+    }
+  }
+}
+
+// Wait until every row of [s, last] has landed in this thread's column.
+template <typename S, typename C>
+__device__ __forceinline__ void wait_rows(int last, int s, int e) {
+  if constexpr (std::is_same<S, C>::value) {
+    int g = 0;
+    while (g < GROUPS - 1 && group_begin(g + 1, s, e) <= last) ++g;
+    cp_async_wait(GROUPS - 1 - g);
+  }
+}
+
+// Everything a tile launch reads, typed inside the kernel.
+struct TileArgs {
+  const void* lhs;      // (lhs_rows, n) factor rows, storage type
+  int lhs_rows;
+  const void* rhs;      // (n, m), storage type
+  void* out;            // (n, m) x, compute type (unused by K1)
+  const void* eps;      // 1 element or nullptr
+  SweepDesc desc;
+  int n;
+  int64_t m;
+  int blocks;           // row blocks B (1 on the on-chip route)
+  void* summ;           // K1's output: (B, 2, order, m)
+  const void* carries;  // K3's entry carries (B, 2, order, m), or nullptr
+  void* coefs;          // (B, 3, order, order): phi, w, psi
+  void* weights;        // (2, order, n): K1's summary weights
+};
+
+// Row block q's coefficients, by threads 0 .. 2 * order - 1 of one block;
+// thread l < order keeps its forward response in scratch[rows of q].
+template <typename FW, typename BW, typename C = typename FW::C>
+__device__ void block_coefs(const FW& fw, const BW& bw, int q, int n,
+                            int blocks, C* scratch, C* coefs) {
+  constexpr int ORDER = FW::ORDER;
+  const int s = part_begin(q, n, blocks), e = part_begin(q + 1, n, blocks);
+  C* phi = coefs + q * 3 * ORDER * ORDER;
+  C* w = phi + ORDER * ORDER;
+  C* psi = w + ORDER * ORDER;
+  const int t = threadIdx.x;
+  if (t < ORDER) {
+    // the forward response to a unit carry at lag t + 1, at rows e-1, e-2
+    C v1 = t == 0 ? C(1) : C(0), v2 = t == 1 ? C(1) : C(0);
+    for (int i = s; i < e; ++i) {
+      const C r = apply(fw, load_row(fw, i), C(0), v1, v2);
+      scratch[i - s] = r;
+      v2 = v1;
+      v1 = r;
+    }
+    phi[t] = v1;
+    if (ORDER == 2) phi[ORDER + t] = v2;
+    // the backward sweep of it from zero carries, at rows s, s+1
+    C y1 = C(0), y2 = C(0);
+    for (int i = e - 1; i >= s; --i) {
+      const C y = apply(bw, load_row(bw, i), scratch[i - s], y1, y2);
+      y2 = y1;
+      y1 = y;
+    }
+    w[t] = y1;
+    if (ORDER == 2) w[ORDER + t] = y2;
+  } else if (t < 2 * ORDER) {
+    // the backward response to a unit carry at lag l + 1, at rows s, s+1
+    const int l = t - ORDER;
+    C v1 = l == 0 ? C(1) : C(0), v2 = l == 1 ? C(1) : C(0);
+    for (int i = e - 1; i >= s; --i) {
+      const C r = apply(bw, load_row(bw, i), C(0), v1, v2);
+      v2 = v1;
+      v1 = r;
+    }
+    psi[l] = v1;
+    if (ORDER == 2) psi[ORDER + l] = v2;
+  }
+}
+
+// The adjoint of pass p over rows [s, e), from zero carries outside them:
+// out(i, d/d in_i of sum_k seed(k) out_k), walked against the pass
+// (descending for a forward pass, ascending for a backward one).  With
+// u_i = (seed_i + pending_i) * scale(i), each term hands -coef_t(i) * u_i
+// on to the row lag_t back along the walk; pending contributions are summed
+// in term order (ops._adjoint repeats it).
+template <typename P, typename Seed, typename Out>
+__device__ void adjoint(const P& p, int s, int e, bool descending, Seed seed,
+                        Out out) {
+  using C = typename P::C;
+  C p1 = C(0), p2 = C(0);
+  for (int k = 0; k < e - s; ++k) {
+    const int i = descending ? e - 1 - k : s + k;
+    const Row<C> kr = load_row(p, i);
+    C u = seed(i) + p1;
+    if (P::SCALED) u = u * kr.s;
+    out(i, u);
+    C n1 = p2, n2 = C(0);
+    if (P::LAG2_FIRST) {
+      n2 = n2 - kr.c0 * u;
+      n1 = n1 - kr.c1 * u;
+    } else {
+      n1 = n1 - kr.c0 * u;
+      if (P::ORDER == 2) n2 = n2 - kr.c1 * u;
+    }
+    p1 = n1;
+    p2 = n2;
+  }
+}
+
+// K0: row block blockIdx.x's coefficients (threads 0 .. 2 order - 1) and its
+// rows of the summary weights (threads 2 order .. 4 order - 1): weights[r]
+// gives its forward end value f_{e-1-r}, weights[order + r] its backward
+// start value y_{s+r}, both from zero carries.  Dynamic shared memory:
+// 4 * order scratch rows of ceil(N / B).
+template <typename S, typename C, int ORDER, bool SCALE_FWD>
+__global__ void shared_coef_kernel(const TileArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const S* lhs = static_cast<const S*>(a.lhs);
+  const S* eps = static_cast<const S*>(a.eps);
+  const int n = a.n, nb = a.blocks, q = blockIdx.x;
+  const Pass<S, C, ORDER, true, SCALE_FWD> fw(a.desc.fwd, lhs, eps,
+                                              a.lhs_rows, n);
+  const Pass<S, C, ORDER, false, !SCALE_FWD> bw(a.desc.bwd, lhs, eps,
+                                                a.lhs_rows, n);
+  const int cap = (n + nb - 1) / nb;
+  const int t = threadIdx.x;
+  const int s = part_begin(q, n, nb), e = part_begin(q + 1, n, nb);
+  C* scratch = reinterpret_cast<C*>(smem_raw) + t * cap;   // row i at i - s
+  C* w = static_cast<C*>(a.weights);
+  if (t < 2 * ORDER) {
+    block_coefs(fw, bw, q, n, nb, scratch, static_cast<C*>(a.coefs));
+  } else if (t < 3 * ORDER) {
+    const int r = t - 2 * ORDER, row = e - 1 - r;
+    adjoint(fw, s, e, true, [&](int i) { return C(i == row); },
+            [&](int i, C u) { w[(int64_t)r * n + i] = u; });
+  } else if (t < 4 * ORDER) {
+    const int r = t - 3 * ORDER, row = s + r;
+    adjoint(bw, s, e, false, [&](int i) { return C(i == row); },
+            [&](int i, C u) { scratch[i - s] = u; });
+    adjoint(fw, s, e, true, [&](int i) { return scratch[i - s]; },
+            [&](int i, C u) { w[(int64_t)(ORDER + r) * n + i] = u; });
+  }
+}
+
+// K1: one thread a column of row block blockIdx.y sums weights * rhs over
+// the block's rows, in row order: its 2 * order summaries.
+template <typename S, typename C, int ORDER>
+__global__ void shared_summary_kernel(const S* __restrict__ rhs,
+                                      const C* __restrict__ weights,
+                                      C* __restrict__ summ, int n, int64_t m,
+                                      int blocks) {
+  const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= m) return;
+  const int b = blockIdx.y;
+  const int s = part_begin(b, n, blocks), e = part_begin(b + 1, n, blocks);
+  C acc[2 * ORDER];
+#pragma unroll
+  for (int k = 0; k < 2 * ORDER; ++k) acc[k] = C(0);
+  const S* col = rhs + j;
+#pragma unroll 8
+  for (int i = s; i < e; ++i) {
+    const C x = to_compute<C, S>(col[(int64_t)i * m]);
+#pragma unroll
+    for (int k = 0; k < 2 * ORDER; ++k) {
+      acc[k] = acc[k] + __ldg(weights + (int64_t)k * n + i) * x;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 2 * ORDER; ++k) {
+    summ[((int64_t)b * 2 * ORDER + k) * m + j] = acc[k];
+  }
+}
+
+// One tile: TILE columns of row block blockIdx.y, P = blockDim.x / TILE
+// row chunks, from zero entry carries (the on-chip route: carries ==
+// nullptr) or from the ones K2 chained (K3); writes x.
+template <typename S, typename C, int ORDER, int TILE, bool SCALE_FWD>
+__global__ void __launch_bounds__(MAX_CHUNKS * 32)
+    shared_tile_kernel(const TileArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  C* tile = reinterpret_cast<C*>(smem_raw);
+  const S* __restrict__ lhs = static_cast<const S*>(a.lhs);
+  const S* __restrict__ eps = static_cast<const S*>(a.eps);
+  const int n = a.n, nb = a.blocks, b = blockIdx.y;
+  const int64_t m = a.m;
+  const Pass<S, C, ORDER, true, SCALE_FWD> fw(a.desc.fwd, lhs, eps,
+                                              a.lhs_rows, n);
+  const Pass<S, C, ORDER, false, !SCALE_FWD> bw(a.desc.bwd, lhs, eps,
+                                                a.lhs_rows, n);
+
+  const int rs = part_begin(b, n, nb);
+  const int rows = part_begin(b + 1, n, nb) - rs;
+  C* resp = tile + rows * TILE;   // RF_0 (, RF_1), RB_0 (, RB_1), `rows` each
+  const int lane = threadIdx.x % TILE, k = threadIdx.x / TILE;
+  const int p = blockDim.x / TILE;
+  const int s = part_begin(k, rows, p), e = part_begin(k + 1, rows, p);
+  const int64_t j = (int64_t)blockIdx.x * TILE + lane;
+  // a masked lane sweeps a real column (the last) and stores nothing; it
+  // still reaches every barrier
+  const int64_t jc = j < m ? j : m - 1;
+  C* col = tile + lane;
+  load_rows<S, C, TILE>(col, static_cast<const S*>(a.rhs) + rs * m + jc, s,
+                        e, m);
+
+  // entry carries: (f_{rs-1}, f_{rs-2}) forward, (y_re, y_re+1) backward
+  C fin[ORDER], yin[ORDER];
+  const C* carries = static_cast<const C*>(a.carries);
+#pragma unroll
+  for (int r = 0; r < ORDER; ++r) {
+    fin[r] = carries != nullptr ? carries[((b * 2) * ORDER + r) * m + jc]
+                                : C(0);
+    yin[r] = carries != nullptr ? carries[((b * 2 + 1) * ORDER + r) * m + jc]
+                                : C(0);
+  }
+
+  // forward from zero carries in place; beside it the forward response to
+  // a unit carry at lag 1 (even lanes) or 2 (odd lanes, order 2)
+  const int which = ORDER == 2 ? (lane & 1) : 0;
+  C h1 = C(0), h2 = C(0);
+  C v1 = which == 0 ? C(1) : C(0), v2 = which == 1 ? C(1) : C(0);
+  C* rf_mine = resp + which * rows;
+  for (int g = 0; g < GROUPS; ++g) {
+    const int lo = group_begin(g, s, e), hi = group_begin(g + 1, s, e);
+    if (lo == hi) continue;
+    wait_rows<S, C>(hi - 1, s, e);
+#pragma unroll 4
+    for (int i = lo; i < hi; ++i) {
+      const Row<C> kf = load_row(fw, rs + i);
+      const C x = apply(fw, kf, col[i * TILE], h1, h2);
+      const C r = apply(fw, kf, C(0), v1, v2);
+      col[i * TILE] = x;
+      if (lane < ORDER) rf_mine[i] = r;
+      h2 = h1;
+      h1 = x;
+      v2 = v1;
+      v1 = r;
+    }
+  }
+  __syncthreads();
+
+  // the forward carries into this chunk, chained over the chunk ends from
+  // the block's entry carries
+  C G[ORDER], Gin[ORDER];
+#pragma unroll
+  for (int r = 0; r < ORDER; ++r) {
+    G[r] = fin[r];
+    Gin[r] = C(0);
+  }
+  for (int q = 0; q < p; ++q) {
+    if (q == k) {
+#pragma unroll
+      for (int r = 0; r < ORDER; ++r) Gin[r] = G[r];
+    }
+    const int first = part_begin(q, rows, p);
+    const int last = part_begin(q + 1, rows, p) - 1;
+    C nG[ORDER];
+#pragma unroll
+    for (int r = 0; r < ORDER; ++r) {
+      if (last - r >= first) {
+        C v = col[(last - r) * TILE];
+#pragma unroll
+        for (int l = 0; l < ORDER; ++l) {
+          v = v + resp[l * rows + last - r] * G[l];
+        }
+        nG[r] = v;
+      } else {
+        nG[r] = G[0];   // a one-row chunk passes its lag-1 carry on
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < ORDER; ++r) G[r] = nG[r];
+  }
+  __syncthreads();   // every chunk end read before the backward overwrites
+
+  // backward from zero carries on the fixed-up forward values, in place;
+  // beside it the backward response to a unit carry at lag 1 or 2; UNROLL
+  // rows at a time, every load of a batch ahead of its stores
+  C* rb_mine = resp + (ORDER + which) * rows;
+  const C* rf0 = resp;
+  const C* rf1 = resp + rows;
+  C y1 = C(0), y2 = C(0);
+  C w1 = which == 0 ? C(1) : C(0), w2 = which == 1 ? C(1) : C(0);
+  int i = e - 1;
+  for (; i - (UNROLL - 1) >= s; i -= UNROLL) {
+    C d[UNROLL], r[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      C v = col[(i - u) * TILE] + rf0[i - u] * Gin[0];
+      if (ORDER == 2) v = v + rf1[i - u] * Gin[ORDER - 1];
+      d[u] = v;
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const Row<C> kb = load_row(bw, rs + i - u);
+      const C y = apply(bw, kb, d[u], y1, y2);
+      const C wv = apply(bw, kb, C(0), w1, w2);
+      y2 = y1;
+      y1 = y;
+      w2 = w1;
+      w1 = wv;
+      d[u] = y;
+      r[u] = wv;
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      col[(i - u) * TILE] = d[u];
+      if (lane < ORDER) rb_mine[i - u] = r[u];
+    }
+  }
+  for (; i >= s; --i) {
+    C v = col[i * TILE] + rf0[i] * Gin[0];
+    if (ORDER == 2) v = v + rf1[i] * Gin[ORDER - 1];
+    const Row<C> kb = load_row(bw, rs + i);
+    const C y = apply(bw, kb, v, y1, y2);
+    const C wv = apply(bw, kb, C(0), w1, w2);
+    y2 = y1;
+    y1 = y;
+    w2 = w1;
+    w1 = wv;
+    col[i * TILE] = y;
+    if (lane < ORDER) rb_mine[i] = wv;
+  }
+  __syncthreads();
+
+  // the backward carries into this chunk, chained down over the chunk
+  // starts from the block's entry carries
+  const C* rb = resp + ORDER * rows;
+  C Y[ORDER], Yin[ORDER];
+#pragma unroll
+  for (int r = 0; r < ORDER; ++r) {
+    Y[r] = yin[r];
+    Yin[r] = C(0);
+  }
+  for (int q = p - 1; q >= 0; --q) {
+    if (q == k) {
+#pragma unroll
+      for (int r = 0; r < ORDER; ++r) Yin[r] = Y[r];
+    }
+    const int first = part_begin(q, rows, p);
+    const int end = part_begin(q + 1, rows, p);
+    C nY[ORDER];
+#pragma unroll
+    for (int r = 0; r < ORDER; ++r) {
+      if (first + r < end) {
+        C v = col[(first + r) * TILE];
+#pragma unroll
+        for (int l = 0; l < ORDER; ++l) {
+          v = v + rb[l * rows + first + r] * Y[l];
+        }
+        nY[r] = v;
+      } else {
+        nY[r] = Y[0];   // a one-row chunk passes its lag-1 carry on
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < ORDER; ++r) Y[r] = nY[r];
+  }
+  // x = y + the chunk's backward responses times its entry carries,
+  // written to device memory once
+  if (j >= m) return;
+  C* xj = static_cast<C*>(a.out) + rs * m + j;
+  const C* rb1 = rb + rows;
+#pragma unroll 4
+  for (int i2 = s; i2 < e; ++i2) {
+    C v = col[i2 * TILE] + rb[i2] * Yin[0];
+    if (ORDER == 2) v = v + rb1[i2] * Yin[ORDER - 1];
+    xj[(int64_t)i2 * m] = v;
+  }
+}
+
+// K2: one thread a column walks the row blocks up (forward carries), then
+// down (backward carries), from K1's summaries and the blocks' coefficients.
+template <typename C, int ORDER>
+__global__ void shared_chain_kernel(const C* __restrict__ summ,
+                                    C* __restrict__ carries,
+                                    const C* __restrict__ coefs, int blocks,
+                                    int64_t m) {
+  const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= m) return;
+  C F[ORDER], Y[ORDER], nv[ORDER];
+#pragma unroll
+  for (int r = 0; r < ORDER; ++r) F[r] = Y[r] = C(0);
+  for (int b = 0; b < blocks; ++b) {
+    const C* phi = coefs + b * 3 * ORDER * ORDER;
+#pragma unroll
+    for (int r = 0; r < ORDER; ++r) {
+      const int64_t at = ((int64_t)(b * 2) * ORDER + r) * m + j;
+      carries[at] = F[r];
+      C v = summ[at];
+#pragma unroll
+      for (int l = 0; l < ORDER; ++l) v = v + __ldg(phi + r * ORDER + l) * F[l];
+      nv[r] = v;
+    }
+#pragma unroll
+    for (int r = 0; r < ORDER; ++r) F[r] = nv[r];
+  }
+  for (int b = blocks - 1; b >= 0; --b) {
+    const C* w = coefs + b * 3 * ORDER * ORDER + ORDER * ORDER;
+    const C* psi = w + ORDER * ORDER;
+#pragma unroll
+    for (int r = 0; r < ORDER; ++r) {
+      F[r] = carries[((int64_t)(b * 2) * ORDER + r) * m + j];
+    }
+#pragma unroll
+    for (int r = 0; r < ORDER; ++r) {
+      const int64_t at = ((int64_t)(b * 2 + 1) * ORDER + r) * m + j;
+      carries[at] = Y[r];
+      C v = summ[at];
+#pragma unroll
+      for (int l = 0; l < ORDER; ++l) v = v + __ldg(w + r * ORDER + l) * F[l];
+#pragma unroll
+      for (int l = 0; l < ORDER; ++l) v = v + __ldg(psi + r * ORDER + l) * Y[l];
+      nv[r] = v;
+    }
+#pragma unroll
+    for (int r = 0; r < ORDER; ++r) Y[r] = nv[r];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launch
+// ---------------------------------------------------------------------------
+
+// shared memory of a tile kernel over `rows` rows: the tile and the
+// 2 * order response rows
+template <typename C>
+size_t tile_smem(int order, int rows, int tile) {
+  return (size_t)rows * (tile + 2 * order) * sizeof(C);
+}
+
+template <typename S, typename C, int ORDER, bool SCALE_FWD>
+const void* tile_fn(int tile) {
+  return tile == 16
+             ? (const void*)shared_tile_kernel<S, C, ORDER, 16, SCALE_FWD>
+             : (const void*)shared_tile_kernel<S, C, ORDER, 32, SCALE_FWD>;
+}
+
+// the tile kernel of (order, tile, which pass is scaled)
+template <typename S, typename C>
+const void* pick_tile_fn(int order, int tile, bool scale_fwd) {
+  if (order == 1) {
+    return scale_fwd ? tile_fn<S, C, 1, true>(tile)
+                     : tile_fn<S, C, 1, false>(tile);
+  }
+  return scale_fwd ? tile_fn<S, C, 2, true>(tile)
+                   : tile_fn<S, C, 2, false>(tile);
+}
+
+// The pass table's shape, which the tile routes compile in: forward lags
+// (order, 1), backward lags (1, 2), exactly one scaled pass, every
+// coefficient a factor row or (index `rows`) the eps operand.
+bool desc_fits(const SweepDesc& d, int order, int rows, bool has_eps) {
+  const PassDesc* passes[2] = {&d.fwd, &d.bwd};
+  for (int k = 0; k < 2; ++k) {
+    const PassDesc& p = *passes[k];
+    if (p.lag[0] != (k == 0 ? order : 1) ||
+        (order == 2 && p.lag[1] != (k == 0 ? 1 : 2)) || p.scale >= rows) {
+      return false;
+    }
+    for (int t = 0; t < order; ++t) {
+      if (p.src[t] < 0 || p.src[t] > rows || (p.src[t] == rows && !has_eps)) {
+        return false;
+      }
+    }
+  }
+  return (d.fwd.scale >= 0) != (d.bwd.scale >= 0);
+}
+
+// Opt a kernel in to `smem` bytes of dynamic shared memory, with the SM's
+// unified memory carved out for shared memory first.
+cudaError_t prepare(const void* fn, size_t smem) {
+  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(fn,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+cudaError_t launch_fn(const void* fn, dim3 grid, dim3 block, size_t smem,
+                      const TileArgs& a, cudaStream_t stream) {
+  cudaError_t e = prepare(fn, smem);
+  if (e != cudaSuccess) return e;
+  void* args[] = {const_cast<TileArgs*>(&a)};
+  e = cudaLaunchKernel(fn, grid, block, args, smem, stream);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <typename S, typename C>
+int launch_tile(const TileArgs& a, int order, int chunks, int tile,
+                cudaStream_t stream) {
+  const int cap = (a.n + a.blocks - 1) / a.blocks;
+  const dim3 grid((unsigned)((a.m + tile - 1) / tile), (unsigned)a.blocks);
+  return (int)launch_fn(pick_tile_fn<S, C>(order, tile, a.desc.fwd.scale >= 0),
+                        grid,
+                        dim3(chunks * tile), tile_smem<C>(order, cap, tile),
+                        a, stream);
+}
+
+template <typename S, typename C>
+int launch_coefs(const TileArgs& a, int order, cudaStream_t stream) {
+  const int cap = (a.n + a.blocks - 1) / a.blocks;
+  const bool fwd = a.desc.fwd.scale >= 0;
+  const void* fn =
+      order == 1 ? (fwd ? (const void*)shared_coef_kernel<S, C, 1, true>
+                        : (const void*)shared_coef_kernel<S, C, 1, false>)
+                 : (fwd ? (const void*)shared_coef_kernel<S, C, 2, true>
+                        : (const void*)shared_coef_kernel<S, C, 2, false>);
+  return (int)launch_fn(fn, dim3((unsigned)a.blocks), dim3(32),
+                        (size_t)4 * order * cap * sizeof(C), a, stream);
+}
+
+template <typename S, typename C>
+int launch_summary(const TileArgs& a, int order, cudaStream_t stream) {
+  const dim3 grid((unsigned)((a.m + SERIAL_THREADS - 1) / SERIAL_THREADS),
+                  (unsigned)a.blocks);
+  const S* rhs = static_cast<const S*>(a.rhs);
+  const C* w = static_cast<const C*>(a.weights);
+  C* summ = static_cast<C*>(a.summ);
+  if (order == 1) {
+    shared_summary_kernel<S, C, 1><<<grid, SERIAL_THREADS, 0, stream>>>(
+        rhs, w, summ, a.n, a.m, a.blocks);
+  } else {
+    shared_summary_kernel<S, C, 2><<<grid, SERIAL_THREADS, 0, stream>>>(
+        rhs, w, summ, a.n, a.m, a.blocks);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename S, typename C>
+int launch_serial(const TileArgs& a, int order, cudaStream_t stream) {
+  const int stage_rows = a.lhs_rows + (a.eps != nullptr ? 1 : 0);
+  const size_t smem = (size_t)stage_rows * SERIAL_CHUNK_N * sizeof(C);
+  const dim3 grid((unsigned)((a.m + SERIAL_THREADS - 1) / SERIAL_THREADS));
+  const S* l = static_cast<const S*>(a.lhs);
+  const S* r = static_cast<const S*>(a.rhs);
+  const S* e = static_cast<const S*>(a.eps);
+  C* o = static_cast<C*>(a.out);
+  if (order == 1) {
+    shared_serial_kernel<S, C, 1><<<grid, SERIAL_THREADS, smem, stream>>>(
+        l, a.lhs_rows, r, o, e, a.n, a.m, a.desc);
+  } else {
+    shared_serial_kernel<S, C, 2><<<grid, SERIAL_THREADS, smem, stream>>>(
+        l, a.lhs_rows, r, o, e, a.n, a.m, a.desc);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename C>
+int launch_chain(const TileArgs& a, int order, cudaStream_t stream) {
+  const dim3 grid((unsigned)((a.m + SERIAL_THREADS - 1) / SERIAL_THREADS));
+  const C* summ = static_cast<const C*>(a.summ);
+  C* carries = static_cast<C*>(const_cast<void*>(a.carries));
+  const C* coefs = static_cast<const C*>(a.coefs);
+  if (order == 1) {
+    shared_chain_kernel<C, 1><<<grid, SERIAL_THREADS, 0, stream>>>(
+        summ, carries, coefs, a.blocks, a.m);
+  } else {
+    shared_chain_kernel<C, 2><<<grid, SERIAL_THREADS, 0, stream>>>(
+        summ, carries, coefs, a.blocks, a.m);
+  }
+  return (int)cudaGetLastError();
+}
+
+enum Route { SERIAL = 0, ONCHIP = 1, PARTITION = 2 };
+
+// A tile launch takes (blocks, chunks, tile) when every chunk of every row
+// block has a row and the tile fits.
+template <typename C>
+bool tiles_fit(int order, int64_t n, int blocks, int chunks, int tile) {
+  if (blocks < 1 || chunks < 1 || chunks > MAX_CHUNKS ||
+      (tile != 16 && tile != 32)) {
+    return false;
+  }
+  const int cap = (int)((n + blocks - 1) / blocks);
+  return n / blocks >= chunks && tile_smem<C>(order, cap, tile) <= SMEM_MAX;
+}
+
+template <typename S, typename C>
+int launch(int route, int blocks, int chunks, int tile, int stage,
+           TileArgs a, int order, void* work, cudaStream_t stream) {
+  if (order != 1 && order != 2) return (int)cudaErrorInvalidValue;
+  if (route == SERIAL) {
+    return stage == 0 ? launch_serial<S, C>(a, order, stream)
+                      : (int)cudaErrorInvalidValue;
+  }
+  if (!tiles_fit<C>(order, a.n, blocks, chunks, tile) ||
+      !desc_fits(a.desc, order, a.lhs_rows, a.eps != nullptr) ||
+      (route == ONCHIP && (blocks != 1 || stage != 0)) ||
+      (route == PARTITION && work == nullptr) || stage < 0 || stage > 4) {
+    return (int)cudaErrorInvalidValue;
+  }
+  a.blocks = blocks;
+  if (route == ONCHIP) return launch_tile<S, C>(a, order, chunks, tile, stream);
+  // work: summaries (B, 2, order, m), carries (the same), coefficients
+  // (B, 3, order, order), summary weights (2, order, n)
+  C* summ = static_cast<C*>(work);
+  C* carries = summ + (int64_t)2 * blocks * order * a.m;
+  C* coefs = carries + (int64_t)2 * blocks * order * a.m;
+  a.summ = summ;
+  a.carries = carries;
+  a.coefs = coefs;
+  a.weights = coefs + 3 * blocks * order * order;
+  int rc = 0;
+  if (stage == 0 || stage == 1) rc = launch_coefs<S, C>(a, order, stream);
+  if (rc == 0 && (stage == 0 || stage == 2)) {
+    rc = launch_summary<S, C>(a, order, stream);
+  }
+  if (rc == 0 && (stage == 0 || stage == 3)) {
+    rc = launch_chain<C>(a, order, stream);
+  }
+  if (rc == 0 && (stage == 0 || stage == 4)) {
+    rc = launch_tile<S, C>(a, order, chunks, tile, stream);
+  }
+  return rc;
+}
+
 PassDesc read_pass(const int* d) {
   PassDesc p;
   p.src[0] = d[0];
@@ -158,59 +939,93 @@ PassDesc read_pass(const int* d) {
 }
 
 template <typename S, typename C>
-int launch(const void* lhs, int rows, const void* rhs, void* out,
-           const void* eps, int64_t n, int64_t m, int order,
-           const SweepDesc& desc, int threads, int chunk_n,
-           cudaStream_t stream) {
-  const int stage_rows = rows + (eps != nullptr ? 1 : 0);
-  const size_t smem = (size_t)stage_rows * chunk_n * sizeof(C);
-  const dim3 grid((unsigned)((m + threads - 1) / threads));
-  const dim3 block(threads);
-  const S* l = static_cast<const S*>(lhs);
-  const S* r = static_cast<const S*>(rhs);
-  const S* e = static_cast<const S*>(eps);
-  C* o = static_cast<C*>(out);
-  if (order == 1) {
-    shared_sweep_kernel<S, C, 1>
-        <<<grid, block, smem, stream>>>(l, rows, r, o, e, n, m, desc, chunk_n);
-  } else if (order == 2) {
-    shared_sweep_kernel<S, C, 2>
-        <<<grid, block, smem, stream>>>(l, rows, r, o, e, n, m, desc, chunk_n);
-  } else {
+int blocks_per_sm(int order, int64_t rows, int chunks, int tile, int* out) {
+  if ((order != 1 && order != 2) ||
+      !tiles_fit<C>(order, rows, 1, chunks, tile)) {
     return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  const size_t smem = tile_smem<C>(order, (int)rows, tile);
+  const void* fn = pick_tile_fn<S, C>(order, tile, true);
+  cudaError_t e = prepare(fn, smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, fn, chunks * tile, smem);
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes.
-//   dtype: 0 float, 1 double, 2 bf16 storage with float compute and output
-//   desc:  11 ints, [order, fwd src0 lag0 src1 lag1 scale, bwd ...]; a
-//          coefficient row equal to `rows` is the staged eps row
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int shared_sweep(int dtype, const void* lhs, int rows,
+// Plain C entry points for ctypes.
+//
+// shared_sweep: one solve.
+//   dtype:  0 float, 1 double, 2 bf16 storage with float compute and output
+//   route:  0 serial (blocks, chunks, tile, work unused), 1 on chip
+//           (blocks = 1), 2 partitioned (work: 4 * blocks * order * m +
+//           3 * blocks * order^2 + 2 * order * n elements of the compute
+//           type)
+//   blocks, chunks, tile: row blocks, row chunks a block (1..16) and columns
+//           a tile (16 or 32); every chunk needs a row and a block's tile
+//           must fit 232,448 bytes
+//   stage:  0 the whole solve; on the partitioned route 1, 2, 3 or 4
+//           launches K0, K1, K2 or K3 alone (to time them)
+//   desc:   11 ints, [order, fwd src0 lag0 src1 lag1 scale, bwd ...]; a
+//           coefficient row equal to `rows` is the eps operand
+// Returns the first launch error (0 on success), or the error that
+// refused the arguments.
+extern "C" int shared_sweep(int dtype, int route, int blocks, int chunks,
+                            int tile, int stage, const void* lhs, int rows,
                             const void* rhs, void* out, const void* eps,
-                            long long n, long long m, const int* desc,
-                            int threads, int chunk_n, void* stream) {
-  if (n <= 0 || m <= 0 || threads <= 0 || chunk_n <= 0) {
+                            void* work, long long n, long long m,
+                            const int* desc, void* stream) {
+  if (n <= 0 || n > INT32_MAX || m <= 0 || route < SERIAL ||
+      route > PARTITION) {
     return (int)cudaErrorInvalidValue;
   }
-  SweepDesc sd;
-  sd.fwd = read_pass(desc + 1);
-  sd.bwd = read_pass(desc + 6);
+  TileArgs a;
+  a.lhs = lhs;
+  a.lhs_rows = rows;
+  a.rhs = rhs;
+  a.out = out;
+  a.eps = eps;
+  a.desc.fwd = read_pass(desc + 1);
+  a.desc.bwd = read_pass(desc + 6);
+  a.n = (int)n;
+  a.m = m;
+  a.blocks = 1;
+  a.summ = nullptr;
+  a.carries = nullptr;
+  a.coefs = nullptr;
+  a.weights = nullptr;
   const int order = desc[0];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float, float>(lhs, rows, rhs, out, eps, n, m, order, sd,
-                                  threads, chunk_n, s);
+      return launch<float, float>(route, blocks, chunks, tile, stage, a, order,
+                                  work, s);
     case 1:
-      return launch<double, double>(lhs, rows, rhs, out, eps, n, m, order, sd,
-                                    threads, chunk_n, s);
+      return launch<double, double>(route, blocks, chunks, tile, stage, a,
+                                    order, work, s);
     case 2:
-      return launch<__nv_bfloat16, float>(lhs, rows, rhs, out, eps, n, m,
-                                          order, sd, threads, chunk_n, s);
+      return launch<__nv_bfloat16, float>(route, blocks, chunks, tile, stage,
+                                          a, order, work, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// shared_sweep_tile_blocks: blocks of the tile kernel over `rows` rows,
+// `chunks` chunks and `tile` columns that one SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks.
+extern "C" int shared_sweep_tile_blocks(int dtype, int order, long long rows,
+                                        int chunks, int tile, int* blocks) {
+  if (rows <= 0) return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0:
+      return blocks_per_sm<float, float>(order, rows, chunks, tile, blocks);
+    case 1:
+      return blocks_per_sm<double, double>(order, rows, chunks, tile, blocks);
+    case 2:
+      return blocks_per_sm<__nv_bfloat16, float>(order, rows, chunks, tile,
+                                                 blocks);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -45,21 +45,17 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from . import build
 from . import ops as _ops
+from .engine import find_spec
+# The on-chip tile's geometry and chunk rules, shared with the shared
+# sweep's tile kernels (``ops``).
+from .ops import (MAX_CHUNKS, RESP_ROWS, TILE_M, chunk_bounds,
+                  chunk_count, onchip_max_rows)
 
 _FUSED_DTYPES = {torch.float32: 0, torch.float64: 1}
-# The on-chip kernel's geometry, as in ``csrc/fused_cn.cu``: columns of a
-# tile (one warp wide), rows of carry responses stored after its N rows,
-# and at most MAX_CHUNKS row chunks (warps) a block.
-TILE_M = 32
-RESP_ROWS = 4
-MAX_CHUNKS = 16
-#: Bytes of shared memory a block may opt in to on Hopper (sm_90).
-SMEM_PER_BLOCK = 232_448
 ROUTES = ("onchip", "global")
 
 
@@ -101,27 +97,12 @@ def _itemsize(dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
 
 
-def onchip_max_rows(dtype) -> int:
-    """The largest N whose tile (``TILE_M`` columns and ``RESP_ROWS``
-    response rows over N rows) fits one block's shared memory: 1614 at
-    float32, 807 at float64."""
-    return SMEM_PER_BLOCK // ((TILE_M + RESP_ROWS) * _itemsize(dtype))
-
-
 def route(n: int, dtype) -> tuple:
     """``("onchip", shared-memory bytes)`` when an on-chip tile over all
     ``n`` rows fits one block's shared memory, else ``("global", 0)``."""
     if n <= onchip_max_rows(dtype):
         return "onchip", n * (TILE_M + RESP_ROWS) * _itemsize(dtype)
     return "global", 0
-
-
-def chunk_count(n: int, dtype) -> int:
-    """Row chunks (warps) of an on-chip block: one for every 256 bytes of
-    a column, at most ``MAX_CHUNKS``; 8 at N = 512 float32 (the fastest
-    count there on an H100, PERF.md), 16 at float64.  A split column's
-    chunks have at least 64 (float32) or 32 (float64) rows."""
-    return max(1, min(MAX_CHUNKS, n * _itemsize(dtype) // 256))
 
 
 def sweep_chunks(n: int, dtype, which: str | None = None) -> int:
@@ -132,51 +113,16 @@ def sweep_chunks(n: int, dtype, which: str | None = None) -> int:
     return chunk_count(n, dtype) if which == "onchip" else 1
 
 
-def chunk_bounds(n: int, chunks: int) -> list:
-    """Row bounds ``[s_0 = 0, s_1, …, s_P = n]``: chunk k is rows
-    ``[k·n // P, (k + 1)·n // P)``."""
-    return [k * n // chunks for k in range(chunks + 1)]
-
-
 def carry_responses(kind: str, lhs: torch.Tensor, chunks: int
                     ) -> torch.Tensor:
     """Each chunk's sweep of a unit carry, from the factor rows ``lhs``
-    alone, as the kernel computes them (in the storage type, row by row,
-    on the host): tridiag (2, N) — the forward response to
-    d^_{s-1} = 1 and the backward one to y_e = 1; penta (4, N) — the
-    forward responses to g_{s-1} = 1 and to g_{s-2} = 1, the backward ones
-    to y_e = 1 and to y_{e+1} = 1."""
-    rows = lhs.detach().cpu().numpy()
-    n = rows.shape[1]
-    one, zero = rows.dtype.type(1), rows.dtype.type(0)
-    bounds = chunk_bounds(n, chunks)
-    if kind == "tridiag":
-        a, inv, chat = rows
-        out = np.empty((2, n), rows.dtype)
-        for s, e in zip(bounds[:-1], bounds[1:]):
-            r = one
-            for i in range(s, e):
-                r = (zero - a[i] * r) * inv[i]
-                out[0, i] = r
-            r = one
-            for i in range(e - 1, s - 1, -1):
-                r = zero - chat[i] * r
-                out[1, i] = r
-    else:
-        eps, beta, inv_alpha, gamma, delta = rows
-        out = np.empty((4, n), rows.dtype)
-        for s, e in zip(bounds[:-1], bounds[1:]):
-            for v, (v1, v2) in enumerate(((one, zero), (zero, one))):
-                for i in range(s, e):
-                    g = (zero - eps[i] * v2 - beta[i] * v1) * inv_alpha[i]
-                    out[v, i] = g
-                    v1, v2 = g, v1
-            for v, (v1, v2) in enumerate(((one, zero), (zero, one)), 2):
-                for i in range(e - 1, s - 1, -1):
-                    y = zero - gamma[i] * v1 - delta[i] * v2
-                    out[v, i] = y
-                    v1, v2 = y, v1
-    return torch.from_numpy(out).to(lhs.device)
+    alone, as the kernel computes them: the rows and passes of the shared
+    ``thomas_constant`` / ``penta_constant`` sweep (``ops.carry_responses``).
+    Tridiag (2, N): the forward response to d^_{s-1} = 1 and the backward
+    one to y_e = 1; penta (4, N): the forward responses to g_{s-1} = 1 and
+    to g_{s-2} = 1, the backward ones to y_e = 1 and to y_{e+1} = 1."""
+    spec = find_spec(3 if kind == "tridiag" else 5, "constant")
+    return _ops.carry_responses(spec, lhs, chunks=chunks)
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,17 @@ Counterpart of ``repro.kernels.ops``.  The shared-LHS half:
   * ``shared_sweep`` dispatches on where the tensors lie: a CUDA tensor
     goes to the hand-written kernel (``csrc/shared_sweep.cu``) or raises,
     a CPU tensor goes to ``shared_sweep_plain``, the same arithmetic in
-    plain torch.  There is no fallback from one to the other.
+    plain torch.  There is no fallback from one to the other;
+  * ``shared_route(N, dtype)`` picks the kernel's route: on chip (a tile
+    of all N rows in shared memory, swept in ``chunk_count`` row chunks
+    from zero carries and fixed up by each chunk's carry responses) up to
+    ``onchip_max_rows`` (1614 at float32 and bf16, 807 at float64), else
+    partitioned (row blocks of ``ROW_BLOCK_BYTES`` of column, in four
+    launches: coefficients K0, summaries K1, chain K2, finish K3).  The
+    plain version takes the same row blocks and chunks and repeats that
+    order.  ``shared_sweep_cuda`` takes a forced ``route=`` (also
+    ``"serial"``, the first one-thread-a-column kernel, which nothing
+    else reaches), ``chunks=`` and ``tile_m=``, to time them.
 
 The per-system-LHS half (cuThomasBatch / cuPentBatch):
 
@@ -36,6 +46,7 @@ where a kernel launches and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -47,9 +58,11 @@ from .engine import (EPS_PARAM, RecurrenceSpec, SweepSpec, compute_dtype,
 _C_INT, _C_PTR, _C_I64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
 # The C entry point of each kernel library, by name.
 _ARGTYPES = {
-    # dtype, lhs, rows, rhs, out, eps, n, m, desc, threads, chunk_n, stream
-    "shared_sweep": [_C_INT, _C_PTR, _C_INT, _C_PTR, _C_PTR, _C_PTR, _C_I64,
-                     _C_I64, ctypes.POINTER(_C_INT), _C_INT, _C_INT, _C_PTR],
+    # dtype, route, blocks, chunks, tile, stage, lhs, rows, rhs, out, eps,
+    # work, n, m, desc, stream
+    "shared_sweep": [_C_INT, _C_INT, _C_INT, _C_INT, _C_INT, _C_INT, _C_PTR,
+                     _C_INT, _C_PTR, _C_PTR, _C_PTR, _C_PTR, _C_I64, _C_I64,
+                     ctypes.POINTER(_C_INT), _C_PTR],
     # dtype, bandwidth, diags, rhs, out, work, n, m, threads, stream
     "batch_sweep": [_C_INT, _C_INT, ctypes.POINTER(_C_PTR), _C_PTR, _C_PTR,
                     _C_PTR, _C_I64, _C_I64, _C_INT, _C_PTR],
@@ -66,8 +79,19 @@ _ARGTYPES = {
 LAUNCHES: dict = {}
 
 DEFAULT_THREADS = 256
-DEFAULT_CHUNK_N = 512
-_SMEM_LIMIT = 48 * 1024   # bytes of shared memory a block gets by default
+# The tile kernels' geometry, as in ``csrc/shared_sweep.cu`` and
+# ``csrc/fused_cn.cu``: columns of a tile (one warp wide), rows of carry
+# responses stored after its N rows, and at most MAX_CHUNKS row chunks a
+# block.
+TILE_M = 32
+RESP_ROWS = 4
+MAX_CHUNKS = 16
+#: Bytes of shared memory a block may opt in to on Hopper (sm_90).
+SMEM_PER_BLOCK = 232_448
+#: Bytes of column in one row block of the shared sweep's partitioned route.
+ROW_BLOCK_BYTES = 2048
+SHARED_ROUTES = ("onchip", "partition", "serial")
+_ROUTE_CODES = {"serial": 0, "onchip": 1, "partition": 2}
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 #: The recurrence kernel also takes fp16 (fp32 carries, as for bf16).
 RECURRENCE_DTYPES = {**_DTYPE_CODES, torch.float16: 3}
@@ -127,44 +151,366 @@ def _uniform_eps_param(f, dtype) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# The sweep: kernel, plain version, dispatch
+# The sweep: routes, plain version, kernel, dispatch
 # ---------------------------------------------------------------------------
 
+def _compute_itemsize(dtype) -> int:
+    return torch.empty((), dtype=compute_dtype(dtype)).element_size()
+
+
+def onchip_max_rows(dtype) -> int:
+    """The largest N whose tile (``TILE_M`` columns and ``RESP_ROWS``
+    response rows over N rows, at the compute type) fits one block's shared
+    memory: 1614 at float32 and bf16, 807 at float64."""
+    return SMEM_PER_BLOCK // ((TILE_M + RESP_ROWS) * _compute_itemsize(dtype))
+
+
+def chunk_count(n: int, dtype) -> int:
+    """Row chunks (thread groups) of a tile over ``n`` rows: one for every
+    256 bytes of a column at the compute type, at most ``MAX_CHUNKS``; 8 at
+    N = 512 float32, 16 at float64."""
+    return max(1, min(MAX_CHUNKS, n * _compute_itemsize(dtype) // 256))
+
+
+def chunk_bounds(n: int, chunks: int) -> list:
+    """Row bounds ``[s_0 = 0, s_1, …, s_P = n]``: part k is rows
+    ``[k·n // P, (k + 1)·n // P)`` (row blocks and chunks alike)."""
+    return [k * n // chunks for k in range(chunks + 1)]
+
+
+@dataclasses.dataclass(frozen=True)
+class SharedRoute:
+    """How ``csrc/shared_sweep.cu`` solves one (N, dtype): the route, its
+    row blocks (1 on chip), row chunks a block and columns a tile."""
+
+    name: str
+    row_blocks: int
+    chunks: int
+    tile_m: int
+
+
+def shared_route(n: int, dtype, which: str | None = None) -> SharedRoute:
+    """The route of the shared sweep at (N, dtype): ``"onchip"`` while a
+    tile over all N rows fits one block (``onchip_max_rows``), else
+    ``"partition"``, in row blocks of ``ROW_BLOCK_BYTES`` of column (512
+    rows at float32 and bf16, 256 at float64).  ``which`` names a route to
+    take instead (``"serial"``: one thread a column, one chunk); one that
+    cannot take N raises.  A pure function of its arguments."""
+    n_max = onchip_max_rows(dtype)
+    which = ("onchip" if n <= n_max else "partition") if which is None \
+        else which
+    if which == "onchip":
+        if n > n_max:
+            raise ValueError(f"shared_sweep: N = {n} is past the on-chip "
+                             f"route's {n_max} rows at {dtype}")
+        return SharedRoute("onchip", 1, chunk_count(n, dtype), TILE_M)
+    if which == "partition":
+        blocks = max(1, -(-n // (ROW_BLOCK_BYTES // _compute_itemsize(dtype))))
+        return SharedRoute("partition", blocks,
+                           chunk_count(n // blocks, dtype), TILE_M)
+    if which == "serial":
+        return SharedRoute("serial", 1, 1, TILE_M)
+    raise ValueError(f"shared_sweep: route must be one of {SHARED_ROUTES}, "
+                     f"got {which!r}")
+
+
+def _check_split(n: int, blocks: int, chunks: int) -> None:
+    """Raise unless ``blocks`` row blocks of ``chunks`` chunks split N rows
+    with at least one row in every chunk."""
+    if not (blocks >= 1 and 1 <= chunks <= MAX_CHUNKS
+            and n // blocks >= chunks):
+        raise ValueError(f"shared_sweep: {blocks} row blocks of {chunks} "
+                         f"chunks do not split N = {n} (1..{MAX_CHUNKS} "
+                         "chunks, a row each)")
+
+
+def _sweep(pspec, order: int, coef, eps_c, spans: list, reverse: bool,
+           src: torch.Tensor | None = None) -> tuple:
+    """Every span of rows swept by ``pspec`` from zero carries, all spans at
+    once, in the kernel's term order, over ``src`` (N, K) (K = 0 when None)
+    and, beside it, over zeros from a unit carry at lag 1 and at lag 2.
+    Returns (the sweep of ``src``, the spans' carry responses (N, order))."""
+    dev, cdt = coef.device, coef.dtype
+    rows_at, short = _walk(spans, reverse, dev)
+    k = 0 if src is None else src.shape[1]
+    n = max(e for _, e in spans)
+    ext = torch.zeros((n, k + order), dtype=cdt, device=dev)
+    if k:
+        ext[:, :k] = src
+    unit = torch.zeros((order, k + order), dtype=cdt, device=dev)
+    unit[:, k:] = torch.eye(order, dtype=cdt, device=dev)
+    carries = tuple(unit[lag].expand(len(spans), -1) for lag in range(order))
+    out = torch.empty_like(ext)
+    for rows, live in zip(rows_at, short):
+        acc = ext[rows]
+        for row, lag in pspec.terms:
+            c = eps_c if row == EPS_PARAM else coef[row, rows][:, None]
+            acc = acc - c * carries[lag - 1]
+        if pspec.scale is not None:
+            acc = acc * coef[pspec.scale, rows][:, None]
+        if live is None:
+            out[rows] = acc
+        else:
+            out[rows[live]] = acc[live]
+        carries = (acc,) + carries[:order - 1]
+    return out[:, :k], out[:, k:]
+
+
+def _chain(span: tuple, values, resp, carry: list, down: bool):
+    """The carries the rows ``span`` pass on: ``values`` + ``resp`` ·
+    ``carry`` at the span's last ``order`` rows (first rows when
+    ``down``), a row outside the span passing the lag-1 carry on."""
+    s, e = span
+    out = []
+    for r in range(len(carry)):
+        i = s + r if down else e - 1 - r
+        if s <= i < e:
+            v = values[i]
+            for lag, g in enumerate(carry):
+                v = v + resp[i, lag] * g
+            out.append(v)
+        else:
+            out.append(carry[0])
+    return out
+
+
+def _tile_sweeps(spec, coef, eps_c, rhs, blocks: int, chunks: int,
+                 fin=None, yin=None) -> torch.Tensor:
+    """What the tile kernel does to each row block, in plain torch: sweep
+    its ``chunks`` chunks from zero carries, chain the carries over the
+    chunk ends from the block's entry carries ``fin`` (zero when None), fix
+    the rows up, and the same backward from ``yin``.  Returns x."""
+    n, m = rhs.shape
+    order = spec.order
+    fwd, bwd = spec.passes()
+    spans = split_spans(n, blocks, chunks)
+    per_block = [spans[b * chunks:(b + 1) * chunks] for b in range(blocks)]
+    zero = [torch.zeros((m,), dtype=coef.dtype, device=rhs.device)] * order
+
+    x, resp = _sweep(fwd, order, coef, eps_c, spans, False, rhs)
+    gin = []
+    for b, block in enumerate(per_block):
+        g = zero if fin is None else fin[b]
+        for span in block:
+            gin.append(g)
+            g = _chain(span, x, resp, g, down=False)
+    for (s, e), g in zip(spans, gin):
+        for lag in range(order):
+            x[s:e] = x[s:e] + resp[s:e, lag:lag + 1] * g[lag]
+
+    x, resp = _sweep(bwd, order, coef, eps_c, spans, True, x)
+    yins = [None] * len(spans)
+    at = len(spans)
+    for b in range(blocks - 1, -1, -1):
+        y = zero if yin is None else yin[b]
+        for span in reversed(per_block[b]):
+            at -= 1
+            yins[at] = y
+            y = _chain(span, x, resp, y, down=True)
+    for (s, e), y in zip(spans, yins):
+        for lag in range(order):
+            x[s:e] = x[s:e] + resp[s:e, lag:lag + 1] * y[lag]
+    return x
+
+
+def split_spans(n: int, blocks: int, chunks: int) -> list:
+    """The row spans ``[(s, e), …]`` of ``chunks`` chunks in each of
+    ``blocks`` row blocks over N rows, in row order."""
+    spans = []
+    bounds = chunk_bounds(n, blocks)
+    for s, e in zip(bounds[:-1], bounds[1:]):
+        cb = chunk_bounds(e - s, chunks)
+        spans += [(s + a, s + b) for a, b in zip(cb[:-1], cb[1:])]
+    return spans
+
+
+def carry_responses(spec, lhs: torch.Tensor, eps: torch.Tensor | None = None,
+                    *, blocks: int = 1, chunks: int = 1) -> torch.Tensor:
+    """Each chunk's sweep of a unit carry, from the factor rows alone, as
+    the tile kernels compute them (at the compute type, in the pass's term
+    order): (2·order, N), the forward responses to a unit carry at lag 1
+    (and 2), then the backward ones."""
+    order = spec.order
+    coef = lhs.to(compute_dtype(lhs.dtype))
+    eps_c = None if eps is None else eps.to(coef.dtype)[0]
+    spans = split_spans(lhs.shape[1], blocks, chunks)
+    fwd, bwd = spec.passes()
+    return torch.cat([_sweep(fwd, order, coef, eps_c, spans, False)[1].T,
+                      _sweep(bwd, order, coef, eps_c, spans, True)[1].T])
+
+
+def _walk(spans: list, descending: bool, dev) -> tuple:
+    """(rows, short): the row of each span at each step, walked ascending
+    or descending (a span past its end repeats its first row), and each
+    step's mask of spans still in their rows (None while all are)."""
+    lens = [e - s for s, e in spans]
+    rows = torch.tensor([[(e - 1 - t if descending else s + t)
+                          if t < e - s else s for s, e in spans]
+                         for t in range(max(lens))], device=dev)
+    short = [None if t < min(lens) else
+             torch.tensor([t < ln for ln in lens], device=dev)
+             for t in range(max(lens))]
+    return rows, short
+
+
+def _adjoint(pspec, coef, eps_c, spans: list, descending: bool,
+             seed: torch.Tensor) -> torch.Tensor:
+    """The adjoint of ``pspec`` over each span, from zero carries outside
+    it, all spans at once: d/d in_i of Σ_k seed_k out_k for each column of
+    ``seed`` (N, K), walked against the pass in K0's arithmetic order:
+    u_i = (seed_i + pending_i) · scale(i), and each term hands
+    −coef_t(i) · u_i on to the row lag_t back along the walk."""
+    rows_at, short = _walk(spans, descending, coef.device)
+    zeros = torch.zeros((len(spans), seed.shape[1]), dtype=coef.dtype,
+                        device=coef.device)
+    out = torch.zeros_like(seed)
+    p1 = p2 = zeros
+    for rows, live in zip(rows_at, short):
+        u = seed[rows] + p1
+        if pspec.scale is not None:
+            u = u * coef[pspec.scale, rows][:, None]
+        if live is None:
+            out[rows] = u
+        else:
+            out[rows[live]] = u[live]
+        n1, n2 = p2, zeros
+        for row, lag in pspec.terms:
+            c = eps_c if row == EPS_PARAM else coef[row, rows][:, None]
+            if lag == 1:
+                n1 = n1 - c * u
+            else:
+                n2 = n2 - c * u
+        p1, p2 = n1, n2
+    return out
+
+
+def summary_weights(spec, coef, eps_c, n: int, blocks: int) -> torch.Tensor:
+    """K0's summary weights, (N, 2·order): column r gives each row block's
+    forward end value f_{e−1−r}, column order + r its backward start value
+    y_{s+r}, both swept from zero carries, as weights on the block's rows
+    of the RHS (the adjoints of the block's sweeps)."""
+    order = spec.order
+    fwd, bwd = spec.passes()
+    spans = split_spans(n, blocks, 1)
+    seed_end = torch.zeros((n, order), dtype=coef.dtype, device=coef.device)
+    seed_start = torch.zeros_like(seed_end)
+    for s, e in spans:
+        for r in range(min(order, e - s)):
+            seed_end[e - 1 - r, r] = 1
+            seed_start[s + r, r] = 1
+    ends = _adjoint(fwd, coef, eps_c, spans, True, seed_end)
+    starts = _adjoint(bwd, coef, eps_c, spans, False, seed_start)
+    starts = _adjoint(fwd, coef, eps_c, spans, True, starts)
+    return torch.cat([ends, starts], 1)
+
+
+def _summaries(weights: torch.Tensor, rhs: torch.Tensor, blocks: int,
+               order: int) -> tuple:
+    """K1: each row block's forward end and backward start values, Σ
+    weight · rhs over its rows in row order.  Returns (fend, bstart), per
+    block a list of ``order`` (M,) tensors."""
+    n = rhs.shape[0]
+    spans = split_spans(n, blocks, 1)
+    rows_at, short = _walk(spans, False, rhs.device)
+    acc = [torch.zeros((blocks, rhs.shape[1]), dtype=weights.dtype,
+                       device=rhs.device)] * (2 * order)
+    for rows, live in zip(rows_at, short):
+        x = rhs[rows].to(weights.dtype)
+        w = weights[rows]
+        if live is not None:
+            w = w * live[:, None]
+        acc = [a + w[:, k:k + 1] * x for k, a in enumerate(acc)]
+    return ([[acc[r][b] for r in range(order)] for b in range(blocks)],
+            [[acc[order + r][b] for r in range(order)]
+             for b in range(blocks)])
+
+
+def block_coefficients(spec, coef, eps_c, n: int, blocks: int) -> list:
+    """Each row block's ``(phi, w, psi)``, order × order nested lists of
+    0-d tensors, from the factor alone: ``phi[r][l]`` the forward response
+    to a unit carry at lag l + 1 at the block's row e − 1 − r, ``w[r][l]``
+    the backward sweep of that response from zero carries at row s + r,
+    ``psi[r][l]`` the backward response to a unit carry at lag l + 1 at
+    row s + r; each swept over the whole block, as K1 computes them."""
+    order = spec.order
+    fwd, bwd = spec.passes()
+    bounds = chunk_bounds(n, blocks)
+    spans = list(zip(bounds[:-1], bounds[1:]))
+    rf = _sweep(fwd, order, coef, eps_c, spans, False)[1]
+    w, rb = _sweep(bwd, order, coef, eps_c, spans, True, rf)
+    # a row outside a one-row block is the carry it passes on: the unit
+    # carry's lag-1 value for the responses, zero for w
+    unit = torch.eye(2, dtype=coef.dtype, device=coef.device)[0]
+    out = []
+    for s, e in spans:
+        def at(table, i, lag, outside):
+            return table[i, lag] if s <= i < e else outside[lag]
+        out.append((
+            [[at(rf, e - 1 - r, lag, unit) for lag in range(order)]
+             for r in range(order)],
+            [[at(w, s + r, lag, 0 * unit) for lag in range(order)]
+             for r in range(order)],
+            [[at(rb, s + r, lag, unit) for lag in range(order)]
+             for r in range(order)]))
+    return out
+
+
 def shared_sweep_plain(spec: SweepSpec, lhs: torch.Tensor, rhs: torch.Tensor,
-                       eps: torch.Tensor | None = None) -> torch.Tensor:
-    """The kernel's function in plain torch: the same passes, the same
-    subtraction order, one row of the batch at a time.  Operands stored
-    at bf16 compute (and return) fp32, as the kernel does."""
+                       eps: torch.Tensor | None = None, *,
+                       blocks: int | None = None,
+                       chunks: int | None = None) -> torch.Tensor:
+    """The kernel's function in plain torch, in the kernel's order of
+    operations: ``blocks`` row blocks (default: ``shared_route``'s), each
+    swept in ``chunks`` row chunks (default: ``chunk_count`` of a block's
+    rows) from zero carries, the chunk carries chained and the rows fixed
+    up; past one block, K0's ``summary_weights`` and
+    ``block_coefficients``, K1's summaries, K2's chain over the blocks and
+    K3's sweeps from the entry carries.  One block of one chunk is the
+    plain sequential sweep.  Operands stored at
+    bf16 compute (and return) fp32, as the kernel does."""
+    n, m = rhs.shape
     cdt = compute_dtype(rhs.dtype)
+    if n == 0 or m == 0:
+        return torch.empty((n, m), dtype=cdt, device=rhs.device)
+    if blocks is None:
+        blocks = shared_route(n, rhs.dtype).row_blocks
+    if chunks is None:
+        chunks = chunk_count(n // blocks, rhs.dtype)
+    _check_split(n, blocks, chunks)
     coef = lhs.to(cdt)
     eps_c = None if eps is None else eps.to(cdt)[0]
-    n, m = rhs.shape
-    out = torch.empty((n, m), dtype=cdt, device=rhs.device)
-    zeros = torch.zeros((m,), dtype=cdt, device=rhs.device)
+    if blocks == 1:
+        return _tile_sweeps(spec, coef, eps_c, rhs, 1, chunks)
+    order = spec.order
+    fend, bstart = _summaries(
+        summary_weights(spec, coef, eps_c, n, blocks), rhs, blocks, order)
+    coefs = block_coefficients(spec, coef, eps_c, n, blocks)
+    zero = [torch.zeros((m,), dtype=cdt, device=rhs.device)] * order
+    f, fin = zero, []
+    for b in range(blocks):
+        fin.append(f)
+        phi = coefs[b][0]
+        f = [_dot(fend[b][r], phi[r], f) for r in range(order)]
+    y, yin = zero, [None] * blocks
+    for b in range(blocks - 1, -1, -1):
+        yin[b] = y
+        _, w, psi = coefs[b]
+        y = [_dot(_dot(bstart[b][r], w[r], fin[b]), psi[r], y)
+             for r in range(order)]
+    return _tile_sweeps(spec, coef, eps_c, rhs, blocks, chunks, fin, yin)
 
-    def at(src, i):
-        return eps_c if src == EPS_PARAM else coef[src, i]
 
-    def run(pspec, source, rows):
-        carries = (zeros,) * spec.order
-        for i in rows:
-            acc = source[i].to(cdt)
-            for src, lag in pspec.terms:
-                acc = acc - at(src, i) * carries[lag - 1]
-            if pspec.scale is not None:
-                acc = acc * at(pspec.scale, i)
-            out[i] = acc
-            carries = (acc,) + carries[:spec.order - 1]
-
-    fwd, bwd = spec.passes()
-    run(fwd, rhs, range(n))
-    run(bwd, out, range(n - 1, -1, -1))
-    return out
+def _dot(v, weights, carries):
+    """``v + weights[0]·carries[0] (+ weights[1]·carries[1])``, in that
+    order."""
+    for wgt, c in zip(weights, carries):
+        v = v + wgt * c
+    return v
 
 
 def _pass_desc(pspec, rows: int) -> list:
     """[src0, lag0, src1, lag1, scale] for the kernel; the eps sentinel
-    becomes the staged row after the factor rows."""
+    becomes the row index one past the factor rows."""
     words = []
     for t in range(2):
         if t < len(pspec.terms):
@@ -192,15 +538,11 @@ def _kernel(name: str):
     return fn
 
 
-def shared_sweep_cuda(spec: SweepSpec, lhs: torch.Tensor, rhs: torch.Tensor,
-                      eps: torch.Tensor | None = None, *,
-                      threads: int | None = None,
-                      chunk_n: int | None = None) -> torch.Tensor:
-    """Launch ``csrc/shared_sweep.cu`` on the current stream.  Validates
-    device, dtype, shape and contiguity and raises on what the kernel
-    does not take; raises when the launch reports a CUDA error."""
-    threads = DEFAULT_THREADS if threads is None else int(threads)
-    chunk_n = DEFAULT_CHUNK_N if chunk_n is None else int(chunk_n)
+def _shared_launch(spec, lhs, rhs, eps, route, chunks, tile_m) -> tuple:
+    """Validate the operands and the route, allocate x (and the partitioned
+    route's workspace); returns ``(launch(stage), x)``, where
+    ``launch(stage)`` runs the whole solve (stage 0) or one of K0–K3
+    (stages 1–4) and raises on a CUDA error.  Counts nothing."""
     n, m = rhs.shape
     operands = [lhs, rhs] + ([] if eps is None else [eps])
     if any(not t.is_cuda or t.device != rhs.device for t in operands):
@@ -218,36 +560,94 @@ def shared_sweep_cuda(spec: SweepSpec, lhs: torch.Tensor, rhs: torch.Tensor,
         raise ValueError("shared_sweep: eps must hold one element")
     if not all(t.is_contiguous() for t in operands):
         raise ValueError("shared_sweep: operands must be contiguous")
-    if not (0 < threads <= 1024 and threads % 32 == 0):
-        raise ValueError(f"shared_sweep: threads={threads} must be a "
-                         "multiple of 32 in (0, 1024]")
+    picked = shared_route(n, rhs.dtype, route)
+    if picked.name == "serial" and (chunks not in (None, 1)
+                                    or tile_m is not None):
+        raise ValueError("shared_sweep: the serial route sweeps whole "
+                         "columns; it takes no chunks or tile")
+    chunks = picked.chunks if chunks is None else int(chunks)
+    tile_m = picked.tile_m if tile_m is None else int(tile_m)
+    if tile_m not in (16, 32):
+        raise ValueError(f"shared_sweep: tile_m={tile_m} must be 16 or 32")
+    if n and m:
+        _check_split(n, picked.row_blocks, chunks)
     cdt = compute_dtype(rhs.dtype)
-    stage_rows = spec.lhs_rows + (eps is not None)
-    smem = stage_rows * chunk_n * torch.empty((), dtype=cdt).element_size()
-    if chunk_n <= 0 or smem > _SMEM_LIMIT:
-        raise ValueError(f"shared_sweep: chunk_n={chunk_n} stages {smem} "
-                         f"bytes of factor; at most {_SMEM_LIMIT} fit")
     out = torch.empty((n, m), dtype=cdt, device=rhs.device)
-    if n == 0 or m == 0:
-        return out
+    work = None
+    if picked.name == "partition" and m:
+        order, b = spec.order, picked.row_blocks
+        work = torch.empty(4 * b * order * m + 3 * b * order * order
+                           + 2 * order * n, dtype=cdt, device=rhs.device)
     fn = _kernel("shared_sweep")
     desc = (ctypes.c_int * 11)(*sweep_desc(spec))
-    with torch.cuda.device(rhs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(_DTYPE_CODES[rhs.dtype], lhs.data_ptr(), spec.lhs_rows,
-                rhs.data_ptr(), out.data_ptr(),
-                None if eps is None else eps.data_ptr(), n, m, desc,
-                threads, chunk_n, stream)
-    if rc != 0:
-        raise RuntimeError(f"shared_sweep launch failed: CUDA error {rc}")
+
+    def launch(stage: int = 0) -> None:
+        if n == 0 or m == 0:
+            return
+        with torch.cuda.device(rhs.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = fn(_DTYPE_CODES[rhs.dtype], _ROUTE_CODES[picked.name],
+                    picked.row_blocks, chunks, tile_m, stage, lhs.data_ptr(),
+                    spec.lhs_rows, rhs.data_ptr(), out.data_ptr(),
+                    None if eps is None else eps.data_ptr(),
+                    None if work is None else work.data_ptr(), n, m, desc,
+                    stream)
+        if rc != 0:
+            raise RuntimeError(f"shared_sweep ({picked.name} route) launch "
+                               f"failed: CUDA error {rc}")
+
+    return launch, out
+
+
+def shared_sweep_cuda(spec: SweepSpec, lhs: torch.Tensor, rhs: torch.Tensor,
+                      eps: torch.Tensor | None = None, *,
+                      route: str | None = None, chunks: int | None = None,
+                      tile_m: int | None = None) -> torch.Tensor:
+    """Launch ``csrc/shared_sweep.cu`` on the current stream, on the route
+    ``shared_route(N, dtype)`` picks.  ``route``, ``chunks`` and ``tile_m``
+    force another choice, to time one against another; a route that cannot
+    take N raises, and nothing falls back.  Validates device, dtype, shape
+    and contiguity and raises on what the kernel does not take; raises when
+    a launch reports a CUDA error.  Counts one launch a solve."""
+    launch, out = _shared_launch(spec, lhs, rhs, eps, route, chunks, tile_m)
+    launch()
     LAUNCHES[spec.name] = LAUNCHES.get(spec.name, 0) + 1
     return out
 
 
+def partition_stages(spec: SweepSpec, lhs: torch.Tensor, rhs: torch.Tensor,
+                     eps: torch.Tensor | None = None) -> dict:
+    """``{"k0": f, …, "k3": f}``: each call launches one of the
+    partitioned route's kernels alone, on one workspace, to time them;
+    each reads what the last launch of the one before it wrote.  Not
+    counted in ``LAUNCHES``: a stage is not a solve."""
+    launch, _ = _shared_launch(spec, lhs, rhs, eps, "partition", None, None)
+    return {f"k{stage - 1}": (lambda stage=stage: launch(stage))
+            for stage in (1, 2, 3, 4)}
+
+
+def shared_tile_blocks_per_sm(rows: int, dtype, order: int, chunks: int,
+                              tile_m: int = TILE_M) -> int:
+    """Blocks of the tile kernel over ``rows`` rows that one SM holds at
+    once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs the
+    card."""
+    fn = build.load("shared_sweep").shared_sweep_tile_blocks
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_C_INT, _C_INT, _C_I64, _C_INT, _C_INT,
+                   ctypes.POINTER(_C_INT)]
+    blocks = ctypes.c_int(0)
+    rc = fn(_DTYPE_CODES[dtype], order, rows, chunks, tile_m,
+            ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"shared_sweep_tile_blocks: CUDA error {rc}")
+    return blocks.value
+
+
 def shared_sweep(spec: SweepSpec, lhs: torch.Tensor, rhs: torch.Tensor,
                  eps: torch.Tensor | None = None) -> torch.Tensor:
-    """The sweep on the kernel for CUDA tensors, on the plain version for
-    CPU tensors; any other device raises."""
+    """The sweep on the kernel for CUDA tensors, on the plain version (in
+    the chunks and row blocks of the route the kernel would take) for CPU
+    tensors; any other device raises."""
     if lhs.dtype != rhs.dtype:
         raise TypeError(f"shared_sweep: factor dtype {lhs.dtype} and rhs "
                         f"dtype {rhs.dtype} differ")

@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels on the card, against their plain versions.
 
-``shared_sweep.cu`` (one shared factor), ``batch_sweep.cu`` (per-system
+``shared_sweep.cu`` (one shared factor, on each of its routes: on chip,
+partitioned past ``ops.onchip_max_rows``, and the serial kernel forced),
+``batch_sweep.cu`` (per-system
 diagonals, factorisation fused into the solve; tested with distinct
 diagonals in every system), ``recurrence_sweep.cu`` (the gated
 recurrences, distinct gates in every column, and their autograd) and
@@ -103,19 +105,104 @@ def test_kernel_matches_plain(name, storage, cuda_device):
     assert _rel(got, want) <= STORAGES[storage]
 
 
-@pytest.mark.parametrize("chunk_n", (1, 7, 512))
-@pytest.mark.parametrize("threads", (32, 256))
-def test_kernel_tiling_knobs_do_not_change_the_answer(threads, chunk_n,
+def _shared_operands(name: str, n: int, m: int, storage: str, seed: int):
+    """(spec, lhs, rhs, eps) of shared spec ``name`` at (n, m), stacked and
+    stored as ``ops.thomas_constant`` / ``penta_constant`` hand them to the
+    sweep, on the card."""
+    spec = engine.REGISTRY[name]
+    dtype = np.float64 if storage == "float64" else np.float32
+    diags = [torch.from_numpy(d) for d in _diags(spec.bandwidth, spec.uniform,
+                                                 n=n, dtype=dtype)]
+    if spec.bandwidth == 3:
+        f = tridiag.thomas_factor(*diags)
+        lhs = ops.stack_tridiag_lhs(f, transposed=spec.transposed)
+    else:
+        f = penta.penta_factor(*diags)
+        lhs = ops.stack_penta_lhs(f, uniform=spec.uniform,
+                                  transposed=spec.transposed)
+    sdt = _TORCH_STORAGE[storage]
+    rhs = torch.from_numpy(
+        np.random.default_rng(seed).normal(size=(n, m)).astype(dtype))
+    eps = ops._uniform_eps_param(f, sdt) if spec.uniform else None
+    return (spec, lhs.to("cuda", sdt).contiguous(), rhs.to("cuda", sdt),
+            None if eps is None else eps.to("cuda"))
+
+
+def _edge_n(n, dtype) -> int:
+    """``n``, or the on-chip tile's last N at ``dtype`` ("n_max") and the
+    first past it ("n_max+1"); the shared sweep and the fused steps share
+    the tile's rows."""
+    if isinstance(n, int):
+        return n
+    return ops.onchip_max_rows(dtype) + (n == "n_max+1")
+
+
+# (route, chunks, tile_m): every chunk count a block takes, both tile
+# widths on chip, and the serial kernel (whole columns)
+KNOBS = [("onchip", c, t) for c in (1, 2, 5, 16) for t in (16, 32)] + [
+    ("partition", c, t) for c, t in ((1, 32), (5, 32), (16, 16))] + [
+    ("serial", None, None)]
+
+
+@pytest.mark.parametrize("route,chunks,tile_m", KNOBS)
+def test_kernel_tiling_knobs_do_not_change_the_answer(route, chunks, tile_m,
                                                       cuda_device):
-    spec = engine.REGISTRY["penta_constant_t"]
-    diags = [torch.from_numpy(d) for d in _diags(5, False, dtype=np.float32)]
-    f = _to(penta.penta_factor(*diags), cuda_device)
-    lhs = ops.stack_penta_lhs(f, transposed=True).contiguous()
-    rhs = torch.randn(N, 77, device=cuda_device)
-    want = ops.shared_sweep_plain(spec, lhs, rhs)
-    got = ops.shared_sweep_cuda(spec, lhs, rhs, threads=threads,
-                                chunk_n=chunk_n)
+    """A forced route, chunk count and tile width against the plain version
+    in the same row blocks and chunks, at N = 600 (uneven chunks; two row
+    blocks on the partitioned route) and a ragged M."""
+    spec, lhs, rhs, _ = _shared_operands("penta_constant_t", 600, 77,
+                                         "float32", seed=3)
+    picked = ops.shared_route(600, torch.float32, route)
+    want = ops.shared_sweep_plain(spec, lhs, rhs, blocks=picked.row_blocks,
+                                  chunks=chunks or 1)
+    got = ops.shared_sweep_cuda(spec, lhs, rhs, route=route, chunks=chunks,
+                                tile_m=tile_m)
+    torch.cuda.synchronize()
     assert _rel(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("m", (333, 1000))
+@pytest.mark.parametrize("n", (1, 2, 3, 600, "n_max", "n_max+1", 4096))
+@pytest.mark.parametrize("storage", sorted(STORAGES))
+@pytest.mark.parametrize("name", SPECS)
+def test_shared_routes_match_plain(name, storage, n, m, cuda_device):
+    """The route the sweep picks, the partitioned route forced and the
+    serial kernel forced, each against the plain version in the same row
+    blocks and chunks; each solve counted once under the spec's name."""
+    spec = engine.REGISTRY[name]
+    dtype = torch.float64 if storage == "float64" else torch.float32
+    n = _edge_n(n, dtype)
+    if spec.bandwidth == 5 and n < 2:
+        pytest.skip("the penta factor needs N >= 2")
+    spec, lhs, rhs, eps = _shared_operands(name, n, m, storage, seed=n)
+    picked = ops.shared_route(n, rhs.dtype)
+    assert picked.name == ("onchip" if n <= ops.onchip_max_rows(dtype)
+                           else "partition")
+    for route in (None, "partition", "serial"):
+        r = picked if route is None else ops.shared_route(n, rhs.dtype, route)
+        want = ops.shared_sweep_plain(spec, lhs, rhs, eps,
+                                      blocks=r.row_blocks, chunks=r.chunks)
+        before = ops.LAUNCHES.get(name, 0)
+        got = (ops.shared_sweep(spec, lhs, rhs, eps) if route is None
+               else ops.shared_sweep_cuda(spec, lhs, rhs, eps, route=route))
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES[name] == before + 1
+        assert got.is_cuda and got.dtype == want.dtype
+        assert _rel(got, want) <= STORAGES[storage], r
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64,
+                                   torch.bfloat16))
+def test_forced_onchip_route_past_n_max_raises(dtype, cuda_device):
+    n = ops.onchip_max_rows(dtype) + 1
+    spec, lhs, rhs, _ = _shared_operands(
+        "thomas_constant", n, 64,
+        {torch.float32: "float32", torch.float64: "float64",
+         torch.bfloat16: "bf16"}[dtype], seed=1)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="on-chip"):
+        ops.shared_sweep_cuda(spec, lhs, rhs, route="onchip")
+    assert ops.LAUNCHES == before
 
 
 @pytest.mark.parametrize("cfg", CONFIGS)
@@ -322,15 +409,6 @@ def _fused_term_scale(kind: str, operands, c) -> float:
                + [(c.abs().max() * weights.abs().max()).item()])
 
 
-def _fused_n(n, dtype) -> int:
-    """``n``, or the on-chip route's last N at ``dtype`` ("n_max") and the
-    first past it ("n_max+1")."""
-    from repro_torch.kernels import fused_cn
-    if isinstance(n, int):
-        return n
-    return fused_cn.onchip_max_rows(dtype) + (n == "n_max+1")
-
-
 # the penta stencil wraps by two rows, so it takes N >= 2; M = 333 and 1000
 # are ragged and no multiple of the on-chip tile's 32 columns
 @pytest.mark.parametrize("m", (333, 1000))
@@ -345,7 +423,7 @@ def test_fused_cn_kernel_matches_plain(kind, dtype, n, m, cuda_device):
     largest term the step forms); each launch counted under its route's
     name, and the on-chip route refused past its rows."""
     from repro_torch.kernels import fused_cn
-    n = _fused_n(n, dtype)
+    n = _edge_n(n, dtype)
     operands = _random_fused_operands(kind, n, dtype, seed=n)
     c = torch.randn(n, m, dtype=dtype, device=cuda_device)
     plain = getattr(fused_cn, f"fused_cn_{kind}_plain")
