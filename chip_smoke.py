@@ -19,10 +19,11 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
      fused CN steps (fp32, fp64) are held the same way, with distinct
      operands in every column, at N ∈ {1, 2, 3, 600}, a ragged M and one
      full-size grid; the fused steps on operands drawn at random, against
-     the largest term the step forms, on the route each N takes and on the
-     global route forced, also at the on-chip route's last N and the first
-     past it (where a forced on-chip launch must raise), each route
-     counted under its own name;
+     the largest term the step forms, on the route each N takes, on the
+     partitioned route forced (where N makes two row blocks) and on the
+     global route forced, also at the on-chip route's last N and past it
+     (N_max + 1, 2 N_max, 4096 and 12,000 rows, where a forced on-chip
+     launch must raise), each route counted under its own name;
   4. the main path at full size through ``repro_torch.solver`` (factorize
      with ``backend="auto"``, solve, and the adjoint through
      ``loss.backward()``), with the launch counts read around each case and
@@ -37,7 +38,7 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
      ``fused_cn_penta_step`` against ``HyperdiffusionCN(backend="cuda")``,
      both on the fused steps' on-chip route; (k) ``ADI2D`` against the
      analytic decay; (l) both fused steps at N = 4096, past the on-chip
-     route's rows, against the ``cuda`` pipeline (the global route);
+     route's rows, against the ``cuda`` pipeline (the partitioned route);
   6. kernel, plain-version and library times at the main-path shapes,
      beside the least time the card could take; each batch row also
      times the shared sweep on the same operator and shape, the paper's
@@ -50,7 +51,9 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
      the floor bytes, the block's occupancy and ptxas report, the on-chip
      route at 1–16 row chunks, and one step of the ``cuda`` pipeline at
      the same shape; (k)'s row times the shared sweep at the ADI half
-     step's shape, and (l)'s rows the global route at its own.  Each
+     step's shape, and (l)'s rows the partitioned route at its own, in
+     turns with the global route forced, at fp32 and fp64, with each of
+     its four launches timed alone and one ``cuda`` pipeline step.  Each
      shared row ((a), (b), (c), (k)) gives its route (``sweep_route``),
      times it in turns with the serial kernel forced (``serial_ms``),
      with the rate on the floor bytes, the tile's blocks per SM and
@@ -97,8 +100,8 @@ _TOLERANCE = {"float32": 1e-5, "float64": 1e-12, "bf16": 1e-5}
 _RECUR_TOLERANCE = {"float32": 1e-5, "float64": 1e-12, "bf16": 2e-2,
                     "float16": 2e-3}
 # edge shapes (ragged M) and the full-size grid of the new kernels; the
-# fused steps also at the on-chip route's edge, N_max and N_max + 1 rows
-# (``fused_shapes``)
+# fused steps also at the on-chip route's edge, N_max and N_max + 1 rows,
+# and past it on the partitioned route (``fused_shapes``)
 _RECUR_SHAPES = ((1, 333), (2, 333), (3, 333), (600, 1000), (4096, 65536))
 _FUSED_SHAPES = ((1, 333), (2, 333), (3, 333), (600, 1000), (512, 1 << 20))
 
@@ -256,11 +259,15 @@ def fused_term_scale(kind: str, plain, operands, c) -> float:
 
 def fused_shapes(dtype) -> tuple:
     """``_FUSED_SHAPES`` and the on-chip route's edge at ``dtype``: N_max
-    rows (the last on chip) and N_max + 1 (the first on the global
-    route), at M = 1000, not a multiple of the tile's 32 columns."""
+    rows (the last on chip) and N_max + 1 (the first on the partitioned
+    route), at M = 1000, not a multiple of the tile's 32 columns; then the
+    partitioned route at 2 N_max, 4096 and the JAX step's 12,000 rows, at
+    M = 333, where the global route's plain version is a sequential loop
+    of N steps."""
     from repro_torch.kernels import fused_cn
     n_max = fused_cn.onchip_max_rows(dtype)
-    return _FUSED_SHAPES + ((n_max, 1000), (n_max + 1, 1000))
+    return _FUSED_SHAPES + ((n_max, 1000), (n_max + 1, 1000),
+                            (2 * n_max, 333), (4096, 333), (12_000, 333))
 
 
 def _template_args(mangled: str) -> str:
@@ -436,24 +443,30 @@ def phase_kernel_vs_plain() -> None:
                 c = torch.randn(n, m, generator=gen, device="cuda",
                                 dtype=dtype)
                 scale = fused_term_scale(kind, plain, operands, c)
-                # the route the step picks, then the global route forced,
-                # each against the plain version in its own chunks
+                # the route the step picks, the partitioned route forced
+                # (where N makes two row blocks), the global route forced,
+                # each against the plain version in its own row blocks and
+                # chunks
                 picked = fused_cn.route(n, dtype)[0]
-                for which in (None, "global"):
-                    route = picked if which is None else which
+                split = fused_cn.row_blocks(n, dtype, "partition") >= 2
+                for route in dict.fromkeys(
+                        (picked,) + ("partition",) * split + ("global",)):
                     ops.reset_launches()
-                    got = kernel(*operands, c, route=which)
+                    got = kernel(*operands, c,
+                                 route=None if route == picked else route)
                     counted = dict(ops.LAUNCHES)
                     want_count = {fused_cn.launch_name(kind, route): 1}
                     check(counted == want_count,
                           f"{name}/{label} N={n}: launches {counted}, "
                           f"expected {want_count}")
-                    want = plain(*operands, c, chunks=fused_cn.sweep_chunks(
-                        n, dtype, route))
+                    want = plain(*operands, c,
+                                 blocks=fused_cn.row_blocks(n, dtype, route),
+                                 chunks=fused_cn.sweep_chunks(n, dtype,
+                                                              route))
                     compare(f"{name}/{route}", label, n, m, got, want,
                             scale=scale)
                     del got, want
-                if picked == "global":
+                if picked == "partition":
                     try:
                         kernel(*operands, c, route="onchip")
                     except ValueError:
@@ -617,7 +630,7 @@ RGLRU_BATCH = 16
 SSD_HEADS, SSD_HEAD_DIM, SSD_STATE, SSD_CHUNK, SSD_BATCH = 24, 64, 128, 64, 8
 PDE_N, PDE_M, PDE_STEPS, ADI_N, ADI_B, ADI_STEPS = 512, 1 << 20, 10, 1024, \
     64, 5
-# case (l): the fused steps past the on-chip route's rows (global route)
+# case (l): the fused steps past the on-chip route's rows (partitioned)
 WIDE_N, WIDE_M, WIDE_STEPS = 4096, 65536, 5
 # chunk counts the on-chip fused rows also time (fp32, 512 rows)
 CHUNK_SWEEP = (1, 2, 4, 8, 16)
@@ -824,7 +837,7 @@ def phase_pde() -> dict:
 
     def wide():
         # both fused steps at WIDE_N rows, past the on-chip route's
-        # onchip_max_rows: the public steps take the global route there
+        # onchip_max_rows: the public steps take the partitioned route
         wn, wm = WIDE_N, WIDE_M
         xw = torch.arange(wn, device="cuda", dtype=torch.float64) / wn
         noisy = (torch.sin(2 * math.pi * xw)[:, None] + 0.3 * torch.randn(
@@ -865,12 +878,13 @@ def phase_pde() -> dict:
                   f"{ADI_B}", adi, {"thomas_constant": 2 * ADI_STEPS},
              ("thomas_constant",))
     run_case("l", f"DiffusionCN fused and fused_cn_penta_step, {WIDE_STEPS} "
-                  f"steps each on {WIDE_N} x {WIDE_M} (the global route)",
-             wide, {"fused_cn_tridiag_global": WIDE_STEPS,
+                  f"steps each on {WIDE_N} x {WIDE_M} (the partitioned "
+                  "route)",
+             wide, {"fused_cn_tridiag_partition": WIDE_STEPS,
                     "thomas_constant": WIDE_STEPS,
-                    "fused_cn_penta_global": WIDE_STEPS,
+                    "fused_cn_penta_partition": WIDE_STEPS,
                     "penta_uniform": WIDE_STEPS},
-             ("fused_cn_tridiag_global", "fused_cn_penta_global"))
+             ("fused_cn_tridiag_partition", "fused_cn_penta_partition"))
     return launches
 
 
@@ -1293,9 +1307,9 @@ def fused_times(key: str, launches: int, card: str, gen,
                         "global", "onchip")
     plain_ms = event_ms(lambda: plain(*operands, c), reps=3, warmup=1)
     errs = {}
-    for which in fused_cn.ROUTES:
+    for which in ("onchip", "global"):
         got = kernel(*operands, c, route=which)
-        want = plain(*operands, c, chunks=fused_cn.sweep_chunks(
+        want = plain(*operands, c, blocks=1, chunks=fused_cn.sweep_chunks(
             n, torch.float32, which))
         errs[which] = (got - want).abs().max().item()
         check(errs[which] <= 1e-5 * want.abs().max().item(),
@@ -1383,59 +1397,131 @@ def fused_times(key: str, launches: int, card: str, gen,
     }
 
 
-def fused_global_times(kind: str, launches: int, card: str, gen) -> dict:
-    """The global route's row at case (l)'s (WIDE_N, WIDE_M), fp32: kernel,
-    plain (one chunk) and its rate on the floor bytes; the operator is
-    (l)'s CN factor at σ = 0.4."""
+def wide_operands(kind: str, dtype) -> tuple:
+    """(ops per element, the ``cuda`` pipeline's step, operands) of case
+    (l)'s fused step at (WIDE_N, WIDE_M): the CN factor at σ = 0.4."""
     import torch
     from repro_torch.core import penta, tridiag
     from repro_torch.kernels import fused_cn, ops
+    from repro_torch.pde import DiffusionCN, HyperdiffusionCN
 
-    n, m, s = WIDE_N, WIDE_M, 0.4
+    n, s = WIDE_N, 0.4
     if kind == "tridiag":
         pf = tridiag.periodic_thomas_factor(*(
-            torch.full((n,), v, device="cuda") for v in (-s, 1 + 2 * s, -s)))
-        operands = [ops.stack_tridiag_lhs(pf.factor).contiguous(), pf.z,
-                    fused_cn.tridiag_params(pf, s, torch.float32)]
-        ops_per_elem = 12
-    else:
-        pf = penta.periodic_penta_factor(*(
-            torch.full((n,), v, device="cuda")
-            for v in (s, -4 * s, 1 + 6 * s, -4 * s, s)))
-        operands = [ops.stack_penta_lhs(pf.factor).contiguous(), pf.Z,
-                    pf.Minv.contiguous(),
-                    fused_cn.penta_params(pf, s, torch.float32)]
-        ops_per_elem = 26
+            torch.full((n,), v, device="cuda", dtype=dtype)
+            for v in (-s, 1 + 2 * s, -s)))
+        _, step = DiffusionCN(n=n, dt=2 * s / n ** 2, backend="cuda",
+                              dtype=dtype).step_fn()
+        return 12, step, [ops.stack_tridiag_lhs(pf.factor).contiguous(),
+                          pf.z, fused_cn.tridiag_params(pf, s, dtype)]
+    pf = penta.periodic_penta_factor(*(
+        torch.full((n,), v, device="cuda", dtype=dtype)
+        for v in (s, -4 * s, 1 + 6 * s, -4 * s, s)))
+    _, step = HyperdiffusionCN(n=n, dt=2 * s / n ** 4, backend="cuda",
+                               mode="uniform", dtype=dtype).step_fn()
+    return 26, step, [ops.stack_penta_lhs(pf.factor).contiguous(), pf.Z,
+                      pf.Minv.contiguous(),
+                      fused_cn.penta_params(pf, s, dtype)]
+
+
+def fused_wide_times(kind: str, launches: int, card: str, gen,
+                     ptxas: dict) -> dict:
+    """Case (l)'s row at (WIDE_N, WIDE_M): the partitioned route (``ms``)
+    and the global route forced (``global_ms``) timed in turns, each with
+    its rate on the floor bytes; each of K0–K3 timed alone
+    (``stage_ms``); the plain version in the route's row blocks and
+    chunks, and the global route's against its own (one chunk); one step
+    of the ``cuda`` pipeline on the same field; the same at fp64
+    (``fp64``); the route's split and its kernels' ptxas report."""
+    import torch
+    from repro_torch.kernels import fused_cn
+
+    n, m = WIDE_N, WIDE_M
     name = f"fused_cn_{kind}"
     kernel = getattr(fused_cn, f"{name}_cuda")
     plain = getattr(fused_cn, f"{name}_plain")
-    check(fused_cn.route(n, torch.float32)[0] == "global",
-          f"{name}: N = {n} should take the global route")
-    c = torch.randn(n, m, generator=gen, device="cuda")
-    stats = kernel_stats(lambda: kernel(*operands, c))
-    plain_ms = event_ms(lambda: plain(*operands, c), reps=3, warmup=1)
-    got, want = kernel(*operands, c), plain(*operands, c)
-    max_abs_err = (got - want).abs().max().item()
-    check(max_abs_err <= 1e-5 * want.abs().max().item(),
-          f"(l) {name} global route vs plain max|Δ| {max_abs_err:.3e}")
-    del got, want, c
-    torch.cuda.empty_cache()
-    floor = getattr(fused_cn, f"{kind}_traffic_bytes")(n, m)["fused"]
-    bound_ms, bound_by = _bound(floor, ops_per_elem * n * m, card)
+    traffic = getattr(fused_cn, f"{kind}_traffic_bytes")
+    rate = card_rates(card)[0]
+    out = {}
+    for label, dtype in (("float32", torch.float32),
+                         ("float64", torch.float64)):
+        check(fused_cn.route(n, dtype)[0] == "partition",
+              f"{name}: N = {n} should take the partitioned route")
+        ops_per_elem, step, operands = wide_operands(kind, dtype)
+        c = torch.randn(n, m, generator=gen, device="cuda", dtype=dtype)
+        turns = route_turns(lambda which: kernel(*operands, c, route=which),
+                            "global", "partition")
+        stages = fused_cn.partition_stages(kind, *operands, c)
+        stage_ms = {k: kernel_stats(f)["ms"] for k, f in stages.items()}
+        del stages
+        floor = traffic(n, m, dtype)["fused"]
+        row = {"ms": turns["partition"]["ms"],
+               "ms_q1": turns["partition"]["ms_q1"],
+               "ms_q3": turns["partition"]["ms_q3"],
+               "reps": turns["partition"]["reps"],
+               "gbps": floor / turns["partition"]["ms"] / 1e6,
+               "global_ms": turns["global"]["ms"],
+               "global_ms_q1": turns["global"]["ms_q1"],
+               "global_ms_q3": turns["global"]["ms_q3"],
+               "global_gbps": floor / turns["global"]["ms"] / 1e6,
+               "stage_ms": stage_ms,
+               "bound_ms": (floor / rate * 1e3 if label == "float64" else
+                            _bound(floor, ops_per_elem * n * m, card)[0])}
+        if label == "float32":
+            row["plain_ms"] = event_ms(lambda: plain(*operands, c), reps=3,
+                                       warmup=1)
+            pipeline = kernel_stats(lambda: step(c))
+            row.update({"pipeline_ms": pipeline["ms"],
+                        "pipeline_ms_q1": pipeline["ms_q1"],
+                        "pipeline_ms_q3": pipeline["ms_q3"],
+                        "pipeline_bound_ms": _bound(traffic(
+                            n, m, dtype)["unfused_pipeline"],
+                            ops_per_elem * n * m, card)[0]})
+            for which in ("partition", "global"):
+                got = kernel(*operands, c, route=which)
+                want = plain(*operands, c,
+                             blocks=fused_cn.row_blocks(n, dtype, which),
+                             chunks=fused_cn.sweep_chunks(n, dtype, which))
+                err = (got - want).abs().max().item()
+                check(err <= 1e-5 * want.abs().max().item(),
+                      f"(l) {name} {which} route vs plain max|Δ| {err:.3e}")
+                row["max_abs_err" if which == "partition"
+                    else "global_max_abs_err"] = err
+                del got, want
+        out[label] = row
+        del operands, c, step
+        torch.cuda.empty_cache()
+    row = out["float32"]
+    order = 1 if kind == "tridiag" else 2
+    kernels = (f"{name}_tile_kernel<f,1>", f"fused_summary_kernel<f,{order}>",
+               f"fused_chain_kernel<f,{order}>",
+               f"shared_coef_kernel<f,f,{order},1>")
     return {
-        "name": f"{name}_global/N{n}xM{m}",
+        "name": f"{name}_partition/N{n}xM{m}",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_cn.cu",
+        "also_source": ["src/repro_torch/kernels/csrc/partition.cuh"],
         "replaces": ("src/repro/kernels/fused_cn.py:32" if kind == "tridiag"
                      else "src/repro/kernels/fused_cn_penta.py:31"),
         "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": stats["ms"], "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        "max_abs_err": row.pop("max_abs_err"),
+        "ms": row.pop("ms"), "plain_ms": row.pop("plain_ms"),
+        "bound_ms": row.pop("bound_ms"),
+        "bound_by": _bound(traffic(n, m)["fused"],
+                           (12 if kind == "tridiag" else 26) * n * m,
+                           card)[1],
         "library_ms": None,
         "library_note": "no single PyTorch call computes a CN step",
-        "case": "l", "ms_q1": stats["ms_q1"], "ms_q3": stats["ms_q3"],
-        "reps": stats["reps"], "gbps": floor / stats["ms"] / 1e6,
+        "case": "l",
+        "split": {"row_blocks": fused_cn.row_blocks(n, torch.float32),
+                  "chunks": fused_cn.sweep_chunks(n, torch.float32),
+                  "tile_smem_bytes": fused_cn.route(n, torch.float32)[1]},
+        **row,
+        "fp64": {**out["float64"],
+                 "split": {"row_blocks": fused_cn.row_blocks(
+                     n, torch.float64), "chunks": fused_cn.sweep_chunks(
+                     n, torch.float64)}},
+        "ptxas": {k: ptxas[k] for k in kernels if k in ptxas},
     }
 
 
@@ -1467,8 +1553,9 @@ def phase_times(main: dict, card: str, ptxas: dict) -> list:
                              gen, ptxas))
         elif key == "l":
             for kind in ("tridiag", "penta"):
-                add(fused_global_times(kind, entry[f"fused_cn_{kind}_global"],
-                                       card, gen))
+                add(fused_wide_times(kind,
+                                     entry[f"fused_cn_{kind}_partition"],
+                                     card, gen, ptxas))
         elif entry["system"].mode == "batch":
             add(batch_times(key, entry, card, gen))
         else:

@@ -3,8 +3,9 @@
 Each source under ``csrc/`` compiles with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, at first use,
 into ``build/repro_torch/`` at the root of the checkout.  The library's
-file name carries a hash of its source, so an edited kernel is rebuilt and
-a stale one is never loaded.  ``build_all`` starts one ``nvcc`` per source,
+file name carries a hash of its source and of every header under
+``csrc/`` that the source includes (``#include "partition.cuh"``), so an
+edited kernel or header is rebuilt and a stale one is never loaded.  ``build_all`` starts one ``nvcc`` per source,
 all at once, and waits for them together.
 
 Nothing here runs when the module is imported: machines without ``nvcc``
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -42,10 +44,28 @@ def nvcc_path() -> str:
                        "the repro_torch kernels")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: dict) -> dict:
+    """``path`` and every file under ``CSRC`` it includes with quotes,
+    transitively: ``{path: bytes}`` in the order first reached."""
+    if path in seen or not path.exists():
+        return seen
+    text = seen[path] = path.read_bytes()
+    for name in _INCLUDE.findall(text):
+        _sources(CSRC / name.decode(), seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+    """The library of ``csrc/<name>.cu``: its name hashes the source, the
+    headers it includes and the compiler flags."""
+    h = hashlib.sha256()
+    for text in _sources(CSRC / f"{name}.cu", {}).values():
+        h.update(text)
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names=SOURCES) -> dict:

@@ -18,7 +18,7 @@ reads the field and writes the next one from one kernel.
     arithmetic in the kernel's order (stencil, forward sweep, backward
     sweep, correction), not a call of the periodic solve.
 
-The kernel has two routes, picked from (N, dtype) by ``route``.  The
+The kernel has three routes, picked from (N, dtype) by ``route``.  The
 on-chip route holds a tile of ``TILE_M`` columns over all N rows in shared
 memory through the three passes, so device memory sees the field read once
 and the next one written once, up to ``onchip_max_rows(dtype)`` rows (1614
@@ -26,15 +26,24 @@ at float32, 807 at float64).  It splits each column's rows into
 ``chunk_count(N, dtype)`` chunks swept at once from zero carries, then
 adds each chunk's response to a unit carry (``carry_responses``, from the
 factor alone) times the carry chained over the chunk ends.  Past
-``onchip_max_rows`` the global route walks each whole column three times
-through device memory, for any N the JAX step takes.  The plain versions
-take the chunk count of either route (``sweep_chunks``; the global route's
-is 1, the plain sequential sweep) and repeat its order.  ``LAUNCHES``
-counts ``fused_cn_tridiag`` / ``fused_cn_penta`` (on-chip) and
-``fused_cn_tridiag_global`` / ``fused_cn_penta_global``.  Only the
-``*_cuda`` wrappers take a forced ``route=`` (and the on-chip route's
-``chunks=``), to time one choice against another; a route that cannot
-take N raises.
+``onchip_max_rows`` the partitioned route cuts each column into
+``row_blocks`` row blocks (512 rows at float32, 256 at float64, as the
+shared sweep's partitioned route cuts them) in four launches: K0 the
+blocks' coefficients from the factor alone, K1 each block's summaries of
+the stencil RHS formed from the field, K2 the chain over the blocks, which
+also yields the corner correction's inputs (y_0, y_1, y_{N−2}, y_{N−1}),
+and K3 each block's tile swept from its true entry carries with the
+correction subtracted: about 3NM words against the 6NM of the global
+route, the first design, one thread walking each whole column three times
+through device memory, which only a forced ``route="global"`` reaches.  The
+plain versions take the row blocks and chunks of any route (``blocks=``,
+``chunks=``; the global route's are one of each, the plain sequential
+sweep) and repeat its order.  ``LAUNCHES`` counts ``fused_cn_tridiag`` /
+``fused_cn_penta`` (on chip), ``fused_cn_*_partition`` and
+``fused_cn_*_global``, one a step.  Only the ``*_cuda`` wrappers take a
+forced ``route=`` (and the tile routes' ``chunks=``), to time one choice
+against another; a route that cannot take N raises, and nothing falls
+back.  ``partition_stages`` times K0–K3 alone.
 
 The JAX package defines no VJP for these steps, so neither does the
 port: a call on an input that requires grad raises.  Storage is float32
@@ -56,7 +65,8 @@ from .ops import (MAX_CHUNKS, RESP_ROWS, TILE_M, chunk_bounds,
                   chunk_count, onchip_max_rows)
 
 _FUSED_DTYPES = {torch.float32: 0, torch.float64: 1}
-ROUTES = ("onchip", "global")
+ROUTES = ("onchip", "partition", "global")
+_ROUTE_CODES = {"global": 0, "onchip": 1, "partition": 2}
 
 
 def _refuse_grad(name: str, tensors) -> None:
@@ -98,19 +108,38 @@ def _itemsize(dtype) -> int:
 
 
 def route(n: int, dtype) -> tuple:
-    """``("onchip", shared-memory bytes)`` when an on-chip tile over all
-    ``n`` rows fits one block's shared memory, else ``("global", 0)``."""
+    """``(name, shared-memory bytes of a tile)``: ``"onchip"`` when a tile
+    over all ``n`` rows fits one block's shared memory, else
+    ``"partition"``, whose tiles hold the largest row block."""
     if n <= onchip_max_rows(dtype):
         return "onchip", n * (TILE_M + RESP_ROWS) * _itemsize(dtype)
-    return "global", 0
+    rows = -(-n // row_blocks(n, dtype, "partition"))
+    return "partition", rows * (TILE_M + RESP_ROWS) * _itemsize(dtype)
+
+
+def row_blocks(n: int, dtype, which: str | None = None) -> int:
+    """Row blocks of route ``which`` (default: the one ``route`` picks):
+    the shared sweep's partitioned row blocks (``ops.shared_route``) on the
+    partitioned route, one on the others."""
+    if which is None:
+        which = "onchip" if n <= onchip_max_rows(dtype) else "partition"
+    if which == "partition":
+        return _ops.shared_route(n, dtype, "partition").row_blocks
+    return 1
 
 
 def sweep_chunks(n: int, dtype, which: str | None = None) -> int:
-    """The chunks the kernel sweeps each column in on route ``which``
-    (default: the one ``route`` picks): ``chunk_count`` on chip, 1 on the
-    global route."""
-    which = route(n, dtype)[0] if which is None else which
-    return chunk_count(n, dtype) if which == "onchip" else 1
+    """The chunks the kernel sweeps each tile in on route ``which``
+    (default: the one ``route`` picks): ``chunk_count`` of a row block's
+    rows on the tile routes, 1 on the global route."""
+    if which == "global":
+        return 1
+    return chunk_count(n // row_blocks(n, dtype, which), dtype)
+
+
+def _spec(kind: str):
+    """The shared sweep whose passes the step's solve runs on A'."""
+    return find_spec(3 if kind == "tridiag" else 5, "constant")
 
 
 def carry_responses(kind: str, lhs: torch.Tensor, chunks: int
@@ -121,8 +150,7 @@ def carry_responses(kind: str, lhs: torch.Tensor, chunks: int
     Tridiag (2, N): the forward response to d^_{s-1} = 1 and the backward
     one to y_e = 1; penta (4, N): the forward responses to g_{s-1} = 1 and
     to g_{s-2} = 1, the backward ones to y_e = 1 and to y_{e+1} = 1."""
-    spec = find_spec(3 if kind == "tridiag" else 5, "constant")
-    return _ops.carry_responses(spec, lhs, chunks=chunks)
+    return _ops.carry_responses(_spec(kind), lhs, chunks=chunks)
 
 
 # ---------------------------------------------------------------------------
@@ -138,17 +166,93 @@ def _responses(kind: str, lhs: torch.Tensor, chunks: int) -> torch.Tensor:
                            dtype=lhs.dtype, device=lhs.device)
     return carry_responses(kind, lhs, chunks)
 
-def fused_cn_tridiag_plain(lhs, z, params, c, chunks: int | None = None
-                           ) -> torch.Tensor:
+
+def _split(name: str, n: int, dtype, bandwidth: int, blocks, chunks
+           ) -> tuple:
+    """(blocks, chunks), by default the route's (``row_blocks``,
+    ``sweep_chunks``), once every chunk of every row block has the rows
+    its carries need (two for penta)."""
+    blocks = row_blocks(n, dtype) if blocks is None else blocks
+    chunks = chunk_count(n // blocks, dtype) if chunks is None else chunks
+    if blocks < 1 or chunks < 1 or n // blocks < chunks * (bandwidth // 2):
+        raise ValueError(f"{name}: {blocks} row blocks of {chunks} chunks "
+                         f"do not split N = {n} ({bandwidth // 2} rows a "
+                         "chunk at least)")
+    return blocks, chunks
+
+
+def stencil_rhs(weights: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The explicit CN stencil of c (N, M) with periodic wrap: weights
+    (2r + 1,) on the rows from offset −r up, summed in that order, as the
+    kernels form the RHS."""
+    half = (weights.shape[0] - 1) // 2
+    r = weights[0] * torch.roll(c, half, 0)
+    for t in range(1, weights.shape[0]):
+        r = r + weights[t] * torch.roll(c, half - t, 0)
+    return r
+
+
+def partition_chain(kind: str, lhs: torch.Tensor, rhs: torch.Tensor,
+                    blocks: int) -> tuple:
+    """K0–K2 of the partitioned route on the stencil RHS ``rhs``
+    (``ops.chain_blocks``).  Returns ``(fin, yin, ends)``: the blocks'
+    entry carries and ``ends``, the rows of y that the corner correction
+    reads, by row: y_0 and y_{N−1} (tridiag), also y_1 and y_{N−2}
+    (penta), with y_{N−1} = f_{N−1} and y_{N−2} = f_{N−2} − γ_{N−2}
+    y_{N−1}, the backward pass's first two rows."""
+    n = rhs.shape[0]
+    fin, yin, fend, ystart = _ops.chain_blocks(_spec(kind), lhs, None, rhs,
+                                               blocks)
+    ends = {0: ystart[0], n - 1: fend[0]}
+    if kind == "penta":
+        ends[1] = ystart[1]
+        ends[n - 2] = fend[1] - lhs[3, n - 2] * fend[0]
+    return fin, yin, ends
+
+
+def _partition_sweep(kind: str, lhs, params, c, blocks: int, chunks: int
+                     ) -> tuple:
+    """The partitioned route's K0–K3 without the correction: (y, ends)."""
+    weights = params[:3] if kind == "tridiag" else params[:5]
+    rhs = stencil_rhs(weights, c)
+    fin, yin, ends = partition_chain(kind, lhs, rhs, blocks)
+    y = _ops._tile_sweeps(_spec(kind), lhs, None, rhs, blocks, chunks, fin,
+                          yin)
+    return y, ends
+
+
+def _woodbury(minv, params, y0, y_1, yN2, yN1) -> list:
+    """Minv V^T y from y's corner rows, in the kernels' order."""
+    a0, b0, a1, eN2, dN1, eN1 = params[5:11]
+    vty = (a0 * yN2 + b0 * yN1, a1 * yN1, eN2 * y0, dN1 * y0 + eN1 * y_1)
+    wv = []
+    for r_i in range(4):
+        acc = minv[r_i, 0] * vty[0]
+        for c_i in range(1, 4):
+            acc = acc + minv[r_i, c_i] * vty[c_i]
+        wv.append(acc)
+    return wv
+
+
+def fused_cn_tridiag_plain(lhs, z, params, c, chunks: int | None = None,
+                           blocks: int | None = None) -> torch.Tensor:
     """lhs (3, N) ``[a, inv_denom, c_hat]`` of A', z (N,), params (8,),
-    c (N, M) -> the next field (N, M), swept in ``chunks`` row chunks
-    (default: ``sweep_chunks(N, dtype)``)."""
+    c (N, M) -> the next field (N, M), in ``blocks`` row blocks of
+    ``chunks`` row chunks (default: the route's, ``row_blocks`` and
+    ``sweep_chunks``).  One block is the on-chip route's order (one chunk:
+    the sequential sweep, the global route's); more are the partitioned
+    route's."""
     n, m = c.shape
-    chunks = sweep_chunks(n, c.dtype) if chunks is None else chunks
+    blocks, chunks = _split("fused_cn_tridiag", n, c.dtype, 3, blocks,
+                            chunks)
+    sl, sc, sr, v_last, inv_sm = params[:5]
+    if blocks > 1:
+        y, ends = _partition_sweep("tridiag", lhs, params, c, blocks, chunks)
+        corr = (ends[0] + v_last * ends[n - 1]) * inv_sm
+        return y - corr[None, :] * z[:, None]
     bounds = chunk_bounds(n, chunks)
     spans = list(zip(bounds[:-1], bounds[1:]))
     a, inv, chat = lhs
-    sl, sc, sr, v_last, inv_sm = params[:5]
     resp_f, resp_b = _responses("tridiag", lhs, chunks)
     zero = torch.zeros((m,), dtype=c.dtype, device=c.device)
     x = torch.empty_like(c)
@@ -182,21 +286,25 @@ def fused_cn_tridiag_plain(lhs, z, params, c, chunks: int | None = None
     return out
 
 
-def fused_cn_penta_plain(lhs, zz, minv, params, c, chunks: int | None = None
-                         ) -> torch.Tensor:
+def fused_cn_penta_plain(lhs, zz, minv, params, c, chunks: int | None = None,
+                         blocks: int | None = None) -> torch.Tensor:
     """lhs (5, N) ``[eps, beta, inv_alpha, gamma, delta]`` of A', Z (N, 4),
-    Minv (4, 4), params (16,), c (N, M) -> the next field; N ≥ 2, swept in
-    ``chunks`` row chunks (default: ``sweep_chunks(N, dtype)``)."""
+    Minv (4, 4), params (16,), c (N, M) -> the next field; N ≥ 2, in the
+    row blocks and chunks of ``fused_cn_tridiag_plain``."""
     n, m = c.shape
     if n < 2:
         raise ValueError(f"fused_cn_penta: the 5-point stencil needs N >= 2, "
                          f"got {n}")
-    chunks = sweep_chunks(n, c.dtype) if chunks is None else chunks
+    blocks, chunks = _split("fused_cn_penta", n, c.dtype, 5, blocks, chunks)
+    if blocks > 1:
+        y, ends = _partition_sweep("penta", lhs, params, c, blocks, chunks)
+        wv = _woodbury(minv, params, ends[0], ends[1], ends[n - 2],
+                       ends[n - 1])
+        return y - _z_times(zz, wv)
     bounds = chunk_bounds(n, chunks)
     spans = list(zip(bounds[:-1], bounds[1:]))
     eps, beta, inv_alpha, gamma, delta = lhs
     w = params[:5]
-    a0, b0, a1, eN2, dN1, eN1 = params[5:11]
     ru, rv, rw, rq = _responses("penta", lhs, chunks)
     zero = torch.zeros((m,), dtype=c.dtype, device=c.device)
     x = torch.empty_like(c)
@@ -229,17 +337,8 @@ def fused_cn_penta_plain(lhs, zz, minv, params, c, chunks: int | None = None
         f0, f1 = spans[q][0], spans[q][0] + 1
         Y1, Y2 = (x[f0] + rw[f0] * Y1 + rq[f0] * Y2,
                   x[f1] + rw[f1] * Y1 + rq[f1] * Y2)
-    y0, y_1, yN2 = Y1, Y2, x[n - 2]
-    vty = (a0 * yN2 + b0 * yN1, a1 * yN1, eN2 * y0, dN1 * y0 + eN1 * y_1)
-    wv = []
-    for r_i in range(4):
-        acc = minv[r_i, 0] * vty[0]
-        for c_i in range(1, 4):
-            acc = acc + minv[r_i, c_i] * vty[c_i]
-        wv.append(acc)
-    corr = zz[:, 0:1] * wv[0]
-    for k in range(1, 4):
-        corr = corr + zz[:, k:k + 1] * wv[k]
+    wv = _woodbury(minv, params, Y1, Y2, x[n - 2], yN1)
+    corr = _z_times(zz, wv)
     out = torch.empty_like(c)
     for (s, e), (yi1, yi2) in zip(spans, ycarry_in):
         out[s:e] = ((x[s:e] + rw[s:e, None] * yi1 + rq[s:e, None] * yi2)
@@ -247,35 +346,50 @@ def fused_cn_penta_plain(lhs, zz, minv, params, c, chunks: int | None = None
     return out
 
 
+def _z_times(zz, wv) -> torch.Tensor:
+    """Z (N, 4) times the Woodbury weights (4 of (M,)): Σ_k Z[:, k] w_k in
+    k order."""
+    corr = zz[:, 0:1] * wv[0]
+    for k in range(1, 4):
+        corr = corr + zz[:, k:k + 1] * wv[k]
+    return corr
+
+
 # ---------------------------------------------------------------------------
 # Kernels and dispatch
 # ---------------------------------------------------------------------------
 
 def launch_name(kind: str, which: str) -> str:
-    """The ``LAUNCHES`` key of ``kind`` ("tridiag" or "penta") on a route."""
-    return f"fused_cn_{kind}" + ("_global" if which == "global" else "")
+    """The ``LAUNCHES`` key of ``kind`` ("tridiag" or "penta") on a route:
+    ``fused_cn_{kind}`` on chip, ``fused_cn_{kind}_partition`` and
+    ``fused_cn_{kind}_global`` on the others."""
+    return f"fused_cn_{kind}" + ("" if which == "onchip" else f"_{which}")
 
 
-def _check_chunks(name: str, n: int, dtype, bandwidth: int,
+def _check_chunks(name: str, rows: int, dtype, bandwidth: int,
                   chunks: int | None) -> int:
-    """``chunks``, or ``chunk_count(n, dtype)`` when None, once it is one
-    an on-chip block takes: 1..MAX_CHUNKS, each at least one row (two for
-    the penta carries)."""
-    chunks = chunk_count(n, dtype) if chunks is None else chunks
-    if not 1 <= chunks <= MAX_CHUNKS or n < chunks * (bandwidth // 2):
-        raise ValueError(f"{name}: {chunks} chunks do not split N = {n} "
+    """``chunks``, or ``chunk_count(rows, dtype)`` when None, once it is
+    one a tile of ``rows`` rows (the smallest row block's) takes:
+    1..MAX_CHUNKS, each at least one row (two for the penta carries)."""
+    chunks = chunk_count(rows, dtype) if chunks is None else chunks
+    if not 1 <= chunks <= MAX_CHUNKS or rows < chunks * (bandwidth // 2):
+        raise ValueError(f"{name}: {chunks} chunks do not split {rows} rows "
                          f"(1..{MAX_CHUNKS}, at least {bandwidth // 2} "
                          "rows each)")
     return chunks
 
 
-def _launch(kind: str, bandwidth: int, operands: dict, c: torch.Tensor,
-            which: str | None, chunks: int | None) -> torch.Tensor:
+def _fused_launch(kind: str, bandwidth: int, operands: dict, c: torch.Tensor,
+                  which: str | None, chunks: int | None) -> tuple:
     """Validate device, dtype and contiguity, pick the route (``which``, or
-    ``route(N, dtype)`` when None) and the on-chip route's chunks
-    (``chunks``, or ``chunk_count``), then launch the ``fused_cn`` entry
-    point of ``csrc/fused_cn.cu`` for ``bandwidth`` (3 or 5); ``operands``
-    are lhs, z / Z, [Minv,] params in the C argument order."""
+    ``route(N, dtype)`` when None), its row blocks and the tile routes'
+    chunks (``chunks``, or ``chunk_count`` of a block's rows), allocate x
+    (and the partitioned route's workspace).  ``operands`` are lhs, z / Z,
+    [Minv,] params in the C argument order.  Returns ``(launch(stage), x,
+    route)``: ``launch(stage)`` runs the ``fused_cn`` entry point of
+    ``csrc/fused_cn.cu``, the whole step (stage 0) or one of the
+    partitioned route's K0–K3 (stages 1–4), and raises on a CUDA error.
+    Counts nothing."""
     name = f"fused_cn_{kind}"
     tensors = [*operands.values(), c]
     if any(not t.is_cuda or t.device != c.device for t in tensors):
@@ -287,42 +401,103 @@ def _launch(kind: str, bandwidth: int, operands: dict, c: torch.Tensor,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: operands must be contiguous")
     n, m = c.shape
-    fits = route(n, c.dtype)[0] == "onchip"
-    which = ("onchip" if fits else "global") if which is None else which
+    picked = route(n, c.dtype)[0]
+    which = picked if which is None else which
     if which not in ROUTES:
         raise ValueError(f"{name}: route must be one of {ROUTES}, got "
                          f"{which!r}")
-    if which == "onchip":
-        if not fits:
+    blocks = row_blocks(n, c.dtype, which)
+    if which == "global":
+        if chunks is not None:
+            raise ValueError(f"{name}: the global route sweeps whole "
+                             "columns; it takes no chunks")
+        chunks = 1
+    else:
+        if which == "onchip" and picked != "onchip":
             raise ValueError(f"{name}: N = {n} is past the on-chip route's "
                              f"{onchip_max_rows(c.dtype)} rows at {c.dtype}")
-        chunks = _check_chunks(name, n, c.dtype, bandwidth, chunks)
+        if which == "partition" and blocks < 2:
+            raise ValueError(f"{name}: N = {n} is one row block at "
+                             f"{c.dtype}; the partitioned route needs two")
+        chunks = _check_chunks(name, n // blocks, c.dtype, bandwidth, chunks)
         if bandwidth == 5 and operands["Z"].data_ptr() % 16:
-            raise ValueError(f"{name}: the on-chip route reads a row of Z "
-                             "as 16-byte loads; Z must be 16-byte aligned")
-    elif chunks is not None:
-        raise ValueError(f"{name}: the global route sweeps whole columns; "
-                         "it takes no chunks")
-    else:
-        chunks = 0   # the C entry point's code for the global route
+            raise ValueError(f"{name}: the tile routes read a row of Z as "
+                             "16-byte loads; Z must be 16-byte aligned")
     x = torch.empty_like(c)
-    if m == 0:
-        return x
+    work = None
+    if which == "partition" and m:
+        order = bandwidth // 2
+        work = torch.empty(4 * blocks * order * m + 3 * blocks * order ** 2
+                           + 2 * order * n + (1 if kind == "tridiag" else 4)
+                           * m, dtype=c.dtype, device=c.device)
     ptrs = [t.data_ptr() for t in operands.values()]
     if bandwidth == 3:
         ptrs.insert(2, None)   # no Minv
+    desc = (ctypes.c_int * 11)(*_ops.sweep_desc(_spec(kind)))
     fn = _ops._kernel("fused_cn")
-    with torch.cuda.device(c.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(_FUSED_DTYPES[c.dtype], bandwidth, chunks, *ptrs,
-                c.data_ptr(), x.data_ptr(), n, m, _ops.DEFAULT_THREADS,
-                stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} ({which} route) launch failed: CUDA "
-                           f"error {rc}")
+
+    def launch(stage: int = 0) -> None:
+        if m == 0:
+            return
+        with torch.cuda.device(c.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = fn(_FUSED_DTYPES[c.dtype], bandwidth, _ROUTE_CODES[which],
+                    blocks, chunks, stage, *ptrs, c.data_ptr(), x.data_ptr(),
+                    None if work is None else work.data_ptr(), desc, n, m,
+                    _ops.DEFAULT_THREADS, stream)
+        if rc != 0:
+            raise RuntimeError(f"{name} ({which} route) launch failed: CUDA "
+                               f"error {rc}")
+
+    return launch, x, which
+
+
+def _launch(kind: str, bandwidth: int, operands: dict, c: torch.Tensor,
+            which: str | None, chunks: int | None) -> torch.Tensor:
+    """One step on the route ``which`` (default: ``route``'s), counted
+    once in ``LAUNCHES`` under ``launch_name``."""
+    launch, x, which = _fused_launch(kind, bandwidth, operands, c, which,
+                                     chunks)
+    launch()
     key = launch_name(kind, which)
     _ops.LAUNCHES[key] = _ops.LAUNCHES.get(key, 0) + 1
     return x
+
+
+def _operands(kind: str, operands: tuple, c: torch.Tensor) -> dict:
+    """The step's operands by name, once their shapes fit c (N, M): lhs
+    (3, N), z (N,), params (8,) (tridiag); lhs (5, N), Z (N, 4), Minv
+    (4, 4), params (16,) (penta, N >= 2)."""
+    name = f"fused_cn_{kind}"
+    min_n = 1 if kind == "tridiag" else 2
+    if c.ndim != 2 or c.shape[0] < min_n:
+        raise ValueError(f"{name}: c must be (N, M) with N >= {min_n}, got "
+                         f"{tuple(c.shape)}")
+    n = c.shape[0]
+    if kind == "tridiag":
+        names, shapes = ("lhs", "z", "params"), ((3, n), (n,), (8,))
+    else:
+        names = ("lhs", "Z", "Minv", "params")
+        shapes = ((5, n), (n, 4), (4, 4), (16,))
+    if len(operands) != len(names) or any(
+            tuple(t.shape) != want for t, want in zip(operands, shapes)):
+        raise ValueError(f"{name}: " + ", ".join(
+            f"{k} {want}" for k, want in zip(names, shapes)) + " expected")
+    return dict(zip(names, operands))
+
+
+def partition_stages(kind: str, *operands) -> dict:
+    """``{"k0": f, …, "k3": f}`` for the partitioned route on ``operands``
+    (those of ``fused_cn_tridiag_cuda`` / ``fused_cn_penta_cuda``, the
+    field last): each call launches one of K0–K3 alone, on one workspace,
+    to time them; each reads what the last launch of the one before it
+    wrote.  Not counted in ``LAUNCHES``: a stage is not a step."""
+    *ops_, c = operands
+    launch, _, _ = _fused_launch(kind, 3 if kind == "tridiag" else 5,
+                                 _operands(kind, ops_, c), c, "partition",
+                                 None)
+    return {f"k{stage - 1}": (lambda stage=stage: launch(stage))
+            for stage in (1, 2, 3, 4)}
 
 
 def onchip_blocks_per_sm(n: int, dtype, bandwidth: int,
@@ -343,24 +518,15 @@ def onchip_blocks_per_sm(n: int, dtype, bandwidth: int,
     return blocks.value
 
 
-def _check_shape(name: str, c: torch.Tensor, min_n: int) -> int:
-    if c.ndim != 2 or c.shape[0] < min_n:
-        raise ValueError(f"{name}: c must be (N, M) with N >= {min_n}, got "
-                         f"{tuple(c.shape)}")
-    return c.shape[0]
-
-
 def fused_cn_tridiag_cuda(lhs, z, params, c, *, route: str | None = None,
                           chunks: int | None = None) -> torch.Tensor:
     """Launch the diffusion step of ``csrc/fused_cn.cu`` on the route
-    ``route(N, dtype)`` picks, or on the one forced here; the on-chip
-    route in ``chunk_count`` chunks, or in ``chunks`` (to time others)."""
-    n = _check_shape("fused_cn_tridiag", c, 1)
-    if lhs.shape != (3, n) or z.shape != (n,) or params.shape != (8,):
-        raise ValueError(f"fused_cn_tridiag: lhs (3, {n}), z ({n},) and "
-                         "params (8,) expected")
-    return _launch("tridiag", 3, {"lhs": lhs, "z": z, "params": params}, c,
-                   route, chunks)
+    ``route(N, dtype)`` picks, or on the one forced here (``"onchip"``,
+    ``"partition"`` or ``"global"``); the tile routes in ``chunk_count``
+    chunks of a row block, or in ``chunks`` (to time others).  Raises on
+    a route that cannot take N; nothing falls back."""
+    return _launch("tridiag", 3, _operands("tridiag", (lhs, z, params), c),
+                   c, route, chunks)
 
 
 def fused_cn_penta_cuda(lhs, zz, minv, params, c, *,
@@ -368,14 +534,9 @@ def fused_cn_penta_cuda(lhs, zz, minv, params, c, *,
                         chunks: int | None = None) -> torch.Tensor:
     """Launch the hyperdiffusion step of ``csrc/fused_cn.cu`` as
     ``fused_cn_tridiag_cuda`` launches the diffusion step."""
-    n = _check_shape("fused_cn_penta", c, 2)
-    if (lhs.shape != (5, n) or zz.shape != (n, 4) or minv.shape != (4, 4)
-            or params.shape != (16,)):
-        raise ValueError(f"fused_cn_penta: lhs (5, {n}), Z ({n}, 4), Minv "
-                         "(4, 4) and params (16,) expected")
     return _launch("penta", 5,
-                   {"lhs": lhs, "Z": zz, "Minv": minv, "params": params}, c,
-                   route, chunks)
+                   _operands("penta", (lhs, zz, minv, params), c), c, route,
+                   chunks)
 
 
 def _dispatch(name: str, cuda_fn, plain_fn, operands: tuple, c):

@@ -69,10 +69,11 @@ _ARGTYPES = {
     # dtype, order, reverse, gates, q, out, n, m, threads, stream
     "recurrence_sweep": [_C_INT, _C_INT, _C_INT, ctypes.POINTER(_C_PTR),
                          _C_PTR, _C_PTR, _C_I64, _C_I64, _C_INT, _C_PTR],
-    # dtype, bandwidth, chunks (0: the global route), lhs, z, minv,
-    # params, c, x, n, m, threads, stream
-    "fused_cn": [_C_INT, _C_INT, _C_INT, _C_PTR, _C_PTR, _C_PTR, _C_PTR,
-                 _C_PTR, _C_PTR, _C_I64, _C_I64, _C_INT, _C_PTR],
+    # dtype, bandwidth, route, blocks, chunks, stage, lhs, z, minv, params,
+    # c, x, work, desc, n, m, threads, stream
+    "fused_cn": [_C_INT, _C_INT, _C_INT, _C_INT, _C_INT, _C_INT, _C_PTR,
+                 _C_PTR, _C_PTR, _C_PTR, _C_PTR, _C_PTR, _C_PTR,
+                 ctypes.POINTER(_C_INT), _C_I64, _C_I64, _C_INT, _C_PTR],
 }
 
 #: Kernel launches by spec name (``thomas_constant``, ``penta_uniform_t``…).
@@ -481,11 +482,24 @@ def shared_sweep_plain(spec: SweepSpec, lhs: torch.Tensor, rhs: torch.Tensor,
     eps_c = None if eps is None else eps.to(cdt)[0]
     if blocks == 1:
         return _tile_sweeps(spec, coef, eps_c, rhs, 1, chunks)
+    fin, yin, _, _ = chain_blocks(spec, coef, eps_c, rhs, blocks)
+    return _tile_sweeps(spec, coef, eps_c, rhs, blocks, chunks, fin, yin)
+
+
+def chain_blocks(spec, coef, eps_c, rhs: torch.Tensor, blocks: int) -> tuple:
+    """K0–K2 of the partitioned route in plain torch: K0's
+    ``summary_weights`` and ``block_coefficients``, K1's summaries of
+    ``rhs`` and K2's chain over the row blocks.  Returns ``(fin, yin,
+    fend, ystart)``: each block's entry carries, forward (f_{s−1},
+    f_{s−2}) and backward (y_e, y_{e+1}), and the chain's ends, the
+    forward values (f_{N−1}, f_{N−2}) and y (y_0, y_1); ``order`` (M,)
+    tensors each."""
+    n, m = rhs.shape
     order = spec.order
     fend, bstart = _summaries(
         summary_weights(spec, coef, eps_c, n, blocks), rhs, blocks, order)
     coefs = block_coefficients(spec, coef, eps_c, n, blocks)
-    zero = [torch.zeros((m,), dtype=cdt, device=rhs.device)] * order
+    zero = [torch.zeros((m,), dtype=coef.dtype, device=rhs.device)] * order
     f, fin = zero, []
     for b in range(blocks):
         fin.append(f)
@@ -497,7 +511,7 @@ def shared_sweep_plain(spec: SweepSpec, lhs: torch.Tensor, rhs: torch.Tensor,
         _, w, psi = coefs[b]
         y = [_dot(_dot(bstart[b][r], w[r], fin[b]), psi[r], y)
              for r in range(order)]
-    return _tile_sweeps(spec, coef, eps_c, rhs, blocks, chunks, fin, yin)
+    return fin, yin, f, y
 
 
 def _dot(v, weights, carries):

@@ -1,13 +1,17 @@
 """``cuda`` backend: the hand-written Hopper sweep kernels.
 
-Counterpart of ``repro.solver.pallas``.  One thread per system walks all N
-rows of the interleaved (N, M) batch out of device memory, so there is no
-VMEM wall and no tuner: the backend serves every constant/uniform system
-at any N, with the shared factor staged through shared memory
-(``kernels/csrc/shared_sweep.cu``), and every Dirichlet batch system, with
-each system's own diagonals factored inside the solve
-(``kernels/csrc/batch_sweep.cu``).  On CPU tensors the same calls run the
-kernels' plain versions (``kernels.ops``).
+Counterpart of ``repro.solver.pallas``.  There is no VMEM wall and no
+tuner: the backend serves every constant/uniform system at any N through
+the shared sweep (``kernels/csrc/shared_sweep.cu``), whose route
+``kernels.ops.shared_route`` picks from (N, dtype).  Up to N = 1614 (fp32,
+bf16) / 807 (fp64) a block holds a tile of 32 systems over all N rows in
+shared memory and sweeps each column in row chunks at once, fixed up by
+the chunks' carry responses; past that the partitioned route cuts each
+column into row blocks of 512 / 256 rows (four launches: coefficients,
+summaries, chain, finish).  Every Dirichlet batch system goes to the batch
+sweep (``kernels/csrc/batch_sweep.cu``), each system's own diagonals
+factored inside the solve.  On CPU tensors the same calls run the kernels'
+plain versions (``kernels.ops``).
 
 Periodic boundaries: the kernel solves the truncated band; the rank-1
 Sherman-Morrison (tridiag) / rank-4 Woodbury (penta) corner corrections
@@ -118,7 +122,7 @@ def transpose_solve_stored(bandwidth: int, mode: str, periodic: bool, stored,
 
 # -- the pure-function contract (repro_torch.solver.functional) --------------
 
-def _pure_build(system: BandedSystem, *, storage_dtype=None):
+def _pure_build(system: BandedSystem, *, storage_dtype=None, **_ignored):
     sdt = _kops.canonical_storage_dtype(storage_dtype)
     return build_stored(system), {"storage_dtype": sdt}
 

@@ -33,20 +33,31 @@ import torch
 from .registry import get_pure_backend
 from .system import BandedSystem
 
-# Tiling knobs of the TPU kernels.  They have no meaning on Hopper, where
-# one thread walks all N rows of its system.
-_TPU_KNOBS = {
-    "block_m": "the TPU lane tile; the CUDA kernel gives each system one "
-               "thread",
-    "block_n": "the TPU's VMEM chunk of N; the CUDA kernel walks all of N "
-               "and stages the factor through shared memory",
+# Knobs of the JAX package that have no meaning here: the TPU kernels'
+# tiling and the scan's unroll factor.  The CUDA kernels size themselves
+# from (N, dtype) (``kernels.ops.shared_route``): a tile of 32 systems over
+# all N rows in shared memory up to N = 1614 (fp32, bf16) / 807 (fp64),
+# each column swept in row chunks at once; past that, row blocks of 512 /
+# 256 rows in four launches (coefficients, summaries, chain, finish).
+_JAX_KNOBS = {
+    "block_m": "the TPU lane tile; the CUDA kernels pick their own tiles "
+               "of systems and mask the ragged edge of M themselves",
+    "block_n": "the TPU's VMEM chunk of N; the CUDA kernel keeps a tile of "
+               "all N rows in shared memory up to N = 1614 (fp32) / 807 "
+               "(fp64) and splits longer columns into row blocks itself",
     "fused": "the choice between one and two TPU kernel calls; the CUDA "
-             "kernel always runs both passes in one launch",
-    "prefetch": "TPU double-buffered DMA; the CUDA kernel has no such "
-                "option",
+             "kernel sweeps both passes of a tile in one launch, or of a "
+             "row block in its partitioned route's four launches",
+    "prefetch": "TPU double-buffered DMA; the CUDA kernel overlaps its "
+                "loads with the sweep itself (cp.async)",
     "interpret": "Pallas interpret mode; tensors on the CPU run the plain "
                  "torch version instead",
+    "unroll": "the unroll factor of jax.lax.scan; the plain torch loops and "
+              "the CUDA kernels take none",
 }
+
+# the JAX package's legacy spelling of the reference backend
+ALIASES = {"core": "reference"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,27 +117,31 @@ def select_backend(system: BandedSystem) -> str:
 
 
 def resolve_backend_name(system: BandedSystem, backend: str) -> str:
+    """``backend`` with ``ALIASES`` applied, ``"auto"`` resolved."""
+    backend = ALIASES.get(backend, backend)
     return select_backend(system) if backend == "auto" else backend
 
 
 def check_options(opts: dict) -> None:
-    """Raise ``TypeError`` on a TPU tiling knob, saying why it has none
-    of its meaning here."""
+    """Raise ``TypeError`` on a knob of ``_JAX_KNOBS``, saying why it has
+    none of its meaning here."""
     for key in opts:
-        if key in _TPU_KNOBS:
+        if key in _JAX_KNOBS:
             raise TypeError(f"{key!r} is not an option of repro_torch: it is "
-                            f"{_TPU_KNOBS[key]}")
+                            f"{_JAX_KNOBS[key]}")
 
 
 def factorize(system: BandedSystem, backend: str = "auto",
               **opts) -> Factorization:
     """Factor ``system`` once.
 
-    ``backend`` is ``reference``, ``cuda`` or ``"auto"``.  Options:
-    ``method`` (reference: ``"scan"``); ``storage_dtype`` (cuda: e.g.
-    ``"bf16"`` stores factor and RHS at bf16 and computes in fp32).  The
-    factor is built without
-    autograd history; gradients reach the diagonals through ``solve``."""
+    ``backend`` is ``reference`` (alias ``core``), ``cuda`` or
+    ``"auto"``.  Options, the union over backends, each ignored by the
+    backends it does not apply to (as in the JAX package): ``method``
+    (reference: ``"scan"``); ``storage_dtype`` (cuda: e.g. ``"bf16"``
+    stores factor and RHS at bf16 and computes in fp32).  The factor is
+    built without autograd history; gradients reach the diagonals
+    through ``solve``."""
     check_options(opts)
     backend = resolve_backend_name(system, backend)
     pure = get_pure_backend(backend)

@@ -71,8 +71,9 @@ class Plan:
 
 
 def plan(system: BandedSystem, backend: str = "auto", **opts) -> Plan:
-    """Prepare a solve for ``system`` on ``backend`` (``reference``,
-    ``cuda`` or ``"auto"``); ``**opts`` as for ``factorize``."""
+    """Prepare a solve for ``system`` on ``backend`` (``reference`` or its
+    alias ``core``, ``cuda`` or ``"auto"``); ``**opts`` as for
+    ``factorize``."""
     check_options(opts)
     backend = resolve_backend_name(system, backend)
     impl = get_backend(backend)(system, **opts)

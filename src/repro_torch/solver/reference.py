@@ -174,7 +174,7 @@ def transpose_solve_stored(bandwidth: int, mode: str, periodic: bool, n: int,
 
 # -- the pure-function contract (repro_torch.solver.functional) --------------
 
-def _pure_build(system: BandedSystem, *, method: str = "scan"):
+def _pure_build(system: BandedSystem, *, method: str = "scan", **_ignored):
     return build_stored(system, method=method), {"method": method}
 
 

@@ -20,8 +20,9 @@ in fp32, so they are held to the fp32 bar, 1e-5; the recurrence also
 stores h at bf16 (or fp16), so there the bar is 2e-2
 (``tests/test_recurrence.py``'s; 2e-3 at fp16).  The fused CN steps are
 held on operands drawn at random, against the largest term the step
-forms rather than max|plain|, on each of their two routes (on chip up to
-``fused_cn.onchip_max_rows``, global past it).  ``nvcc`` contracts
+forms rather than max|plain|, on each of their three routes (on chip up to
+``fused_cn.onchip_max_rows``, partitioned past it, and the global kernel
+forced).  ``nvcc`` contracts
 ``a - b*c`` into an FMA, so the two agree to a few ulps, not bitwise.
 """
 
@@ -410,20 +411,26 @@ def _fused_term_scale(kind: str, operands, c) -> float:
 
 
 # the penta stencil wraps by two rows, so it takes N >= 2; M = 333 and 1000
-# are ragged and no multiple of the on-chip tile's 32 columns
-@pytest.mark.parametrize("m", (333, 1000))
-@pytest.mark.parametrize("kind,n", [(kind, n) for kind in ("tridiag", "penta")
-                                    for n in (1, 2, 3, 600, "n_max",
-                                              "n_max+1")
-                                    if not (kind == "penta" and n == 1)])
+# are ragged and no multiple of the on-chip tile's 32 columns.  Past the
+# on-chip rows: the partitioned route at 2 N_max, 4096 and the JAX step's
+# 12,000 rows, at M = 333 to keep the sequential plain version short.
+_FUSED_NM = [(n, m) for n in (1, 2, 3, 600, "n_max", "n_max+1")
+             for m in (333, 1000)] + [
+    (n, 333) for n in ("2n_max", 4096, 12_000)]
+
+
+@pytest.mark.parametrize("kind,n,m", [
+    (kind, n, m) for kind in ("tridiag", "penta") for n, m in _FUSED_NM
+    if not (kind == "penta" and n == 1)])
 @pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
 def test_fused_cn_kernel_matches_plain(kind, dtype, n, m, cuda_device):
-    """The route the step picks and the global route forced, each against
-    the plain version in its own chunks: max|kernel - plain| ≤ tol · (the
-    largest term the step forms); each launch counted under its route's
-    name, and the on-chip route refused past its rows."""
+    """The route the step picks, the partitioned route forced (where N
+    makes two row blocks) and the global route forced, each against the
+    plain version in its own row blocks and chunks: max|kernel - plain| ≤
+    tol · (the largest term the step forms); each launch counted under its
+    route's name, and the on-chip route refused past its rows."""
     from repro_torch.kernels import fused_cn
-    n = _edge_n(n, dtype)
+    n = 2 * ops.onchip_max_rows(dtype) if n == "2n_max" else _edge_n(n, dtype)
     operands = _random_fused_operands(kind, n, dtype, seed=n)
     c = torch.randn(n, m, dtype=dtype, device=cuda_device)
     plain = getattr(fused_cn, f"fused_cn_{kind}_plain")
@@ -431,8 +438,11 @@ def test_fused_cn_kernel_matches_plain(kind, dtype, n, m, cuda_device):
     tol = 1e-12 if dtype == torch.float64 else 1e-5
     scale = _fused_term_scale(kind, operands, c)
     picked = fused_cn.route(n, dtype)[0]
-    for which in (picked, "global"):
+    split = fused_cn.row_blocks(n, dtype, "partition") >= 2
+    for which in dict.fromkeys((picked,) + ("partition",) * split
+                               + ("global",)):
         want = plain(*operands, c,
+                     blocks=fused_cn.row_blocks(n, dtype, which),
                      chunks=fused_cn.sweep_chunks(n, dtype, which))
         before = dict(ops.LAUNCHES)
         got = (getattr(fused_cn, f"fused_cn_{kind}")(*operands, c)
@@ -442,9 +452,40 @@ def test_fused_cn_kernel_matches_plain(kind, dtype, n, m, cuda_device):
                    if v != before.get(k, 0)}
         assert counted == {fused_cn.launch_name(kind, which): 1}
         assert (got - want).abs().max().item() <= tol * scale
-    if picked == "global":
+    if picked == "partition":
         with pytest.raises(ValueError, match="on-chip"):
             kernel(*operands, c, route="onchip")
+    else:
+        assert picked == "onchip"
+
+
+@pytest.mark.parametrize("chunks", (1, 3, 8, 16))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+@pytest.mark.parametrize("kind", ("tridiag", "penta"))
+def test_fused_cn_partitioned_route_in_any_chunks_matches_plain(
+        kind, dtype, chunks, cuda_device):
+    """The partitioned route forced to ``chunks`` row chunks a block
+    against the plain version in the same blocks and chunks, at N = 4096
+    (8 or 16 row blocks) and a ragged M = 333; its four launches timed
+    alone (``partition_stages``) leave the same x as one step."""
+    from repro_torch.kernels import fused_cn
+    n = 4096
+    operands = _random_fused_operands(kind, n, dtype, seed=chunks)
+    c = torch.randn(n, 333, dtype=dtype, device=cuda_device)
+    kernel = getattr(fused_cn, f"fused_cn_{kind}_cuda")
+    got = kernel(*operands, c, route="partition", chunks=chunks)
+    want = getattr(fused_cn, f"fused_cn_{kind}_plain")(
+        *operands, c, blocks=fused_cn.row_blocks(n, dtype), chunks=chunks)
+    torch.cuda.synchronize()
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert (got - want).abs().max().item() <= tol * _fused_term_scale(
+        kind, operands, c)
+    before = dict(ops.LAUNCHES)
+    stages = fused_cn.partition_stages(kind, *operands, c)
+    assert sorted(stages) == ["k0", "k1", "k2", "k3"]
+    for stage in ("k0", "k1", "k2", "k3"):
+        stages[stage]()
+    assert ops.LAUNCHES == before
 
 
 @pytest.mark.parametrize("chunks", (1, 2, 5, 16))
@@ -469,23 +510,26 @@ def test_fused_cn_onchip_route_in_any_chunks_matches_plain(kind, dtype,
         kind, operands, c)
 
 
+# the main path's rows on chip (512) and past them (4096, partitioned)
+@pytest.mark.parametrize("n", (512, 4096))
 @pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
 @pytest.mark.parametrize("kind", ("tridiag", "penta"))
-def test_fused_cn_routes_agree_at_the_main_path_rows(kind, dtype,
+def test_fused_cn_routes_agree_at_the_main_path_rows(kind, dtype, n,
                                                      cuda_device):
-    """At N = 512 the on-chip route (8 or 16 chunks) and the global route
-    (one chunk) agree within the kernel-vs-plain bar."""
+    """At N = 512 the on-chip route (8 or 16 chunks), at N = 4096 the
+    partitioned route, and the global route (one chunk) agree within the
+    kernel-vs-plain bar."""
     from repro_torch.kernels import fused_cn
-    n = 512
     operands = _random_fused_operands(kind, n, dtype, seed=7)
     c = torch.randn(n, 4096, dtype=dtype, device=cuda_device)
     kernel = getattr(fused_cn, f"fused_cn_{kind}_cuda")
-    assert fused_cn.route(n, dtype)[0] == "onchip"
-    onchip = kernel(*operands, c, route="onchip")
+    picked = fused_cn.route(n, dtype)[0]
+    assert picked == ("onchip" if n == 512 else "partition")
+    tiled = kernel(*operands, c, route=picked)
     glob = kernel(*operands, c, route="global")
     torch.cuda.synchronize()
     tol = 1e-12 if dtype == torch.float64 else 1e-5
-    assert (onchip - glob).abs().max().item() <= tol * _fused_term_scale(
+    assert (tiled - glob).abs().max().item() <= tol * _fused_term_scale(
         kind, operands, c)
 
 

@@ -230,12 +230,15 @@ def _jax_diffusion(backend: str) -> np.ndarray:
     return np.asarray(model.run(jnp.asarray(_field()), STEPS))
 
 
-@pytest.mark.parametrize("backend", ("reference", "cuda", "auto", "fused"))
+# "core" is the JAX package's legacy name of the reference backend; both
+# packages take it
+@pytest.mark.parametrize("backend", ("reference", "core", "cuda", "auto",
+                                     "fused"))
 def test_diffusion_matches_jax(backend):
     model = tpde.DiffusionCN(n=N, dt=2e-5, backend=backend, device="cpu")
     got = model.run(torch.from_numpy(_field()), STEPS)
-    jax_backend = {"reference": "reference", "fused": "fused"}.get(
-        backend, "pallas")
+    jax_backend = backend if backend in ("reference", "core", "fused") \
+        else "pallas"
     _close(got, _jax_diffusion(jax_backend))
 
 
@@ -271,10 +274,11 @@ def _hyper_field() -> np.ndarray:
 # reference, and backend="cuda" refuses it
 @pytest.mark.parametrize("mode,backend", [
     (mode, backend) for mode in ("constant", "uniform", "batch")
-    for backend in ("reference", "cuda", "auto")
+    for backend in ("reference", "core", "cuda", "auto")
     if not (mode == "batch" and backend == "cuda")])
 def test_hyperdiffusion_matches_jax(mode, backend):
-    want = _jax_hyperdiffusion(mode, "reference" if backend == "reference"
+    want = _jax_hyperdiffusion(mode, backend if backend in ("reference",
+                                                            "core")
                                else "auto")
     model = tpde.HyperdiffusionCN(
         n=N, dt=2e-6, backend=backend, mode=mode, dtype=torch.float64,
@@ -291,12 +295,12 @@ def test_hyperdiffusion_has_no_fused_backend():
         model.step_fn()
 
 
-@pytest.mark.parametrize("backend", ("reference", "cuda", "auto"))
+@pytest.mark.parametrize("backend", ("reference", "core", "cuda", "auto"))
 def test_adi2d_matches_jax(backend):
     nx, ny, b, dt, steps = 32, 24, 3, 1e-4, 10
     rng = np.random.default_rng(3)
     f0 = rng.normal(size=(nx, ny, b)).astype(np.float32)
-    jax_backend = "reference" if backend == "reference" else "pallas"
+    jax_backend = backend if backend in ("reference", "core") else "pallas"
     want = jpde.ADI2D(nx=nx, ny=ny, dt=dt, backend=jax_backend).run(
         jnp.asarray(f0), steps)
     model = tpde.ADI2D(nx=nx, ny=ny, dt=dt, backend=backend, device="cpu")

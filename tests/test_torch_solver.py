@@ -249,8 +249,10 @@ def test_batch_mode_routes_to_reference_and_cuda_refuses(bw, periodic):
     assert _rel(solve(fact, torch.from_numpy(_rhs())), want) <= TOL
 
 
+# the TPU kernels' tiling knobs and JAX's scan unroll factor: refused with
+# the reason they mean nothing here
 @pytest.mark.parametrize("knob", ("block_m", "block_n", "fused", "prefetch",
-                                  "interpret"))
+                                  "interpret", "unroll"))
 def test_tpu_knobs_raise(knob):
     system = _port_system(3, "constant", False)
     with pytest.raises(TypeError, match=knob):
@@ -270,3 +272,48 @@ def test_cuda_options_ride_in_the_meta():
             .meta.opt("storage_dtype") == "float64")
     x = solve(fact, torch.from_numpy(_rhs()))
     assert x.dtype == torch.float32
+
+
+@pytest.mark.parametrize("cfg", [(3, "constant", True), (5, "uniform", False)],
+                         ids=_ids)
+def test_core_alias_is_the_reference_backend(cfg):
+    """``backend="core"``, the JAX package's legacy spelling, resolves to
+    ``reference`` in ``factorize`` and ``plan`` and solves as JAX's
+    ``core`` does."""
+    bw, mode, periodic = cfg
+    jfact = jsolver.factorize(_jax_system(bw, mode, periodic), backend="core")
+    want = np.asarray(jsolver.solve(jfact, jnp.asarray(_rhs())))
+    system = _port_system(bw, mode, periodic)
+    fact = factorize(system, backend="core")
+    assert fact.backend == "reference"
+    assert _rel(solve(fact, torch.from_numpy(_rhs())), want) <= TOL
+    p = plan(system, backend="core")
+    assert p.backend == "reference"
+    assert _rel(p.solve(torch.from_numpy(_rhs())), want) <= TOL
+
+
+@pytest.mark.parametrize("case", ["scan-on-cuda", "bf16-on-reference"])
+def test_options_of_another_backend_are_ignored(case):
+    """``factorize`` takes the union of the backends' options and each
+    backend ignores what does not apply, as in the JAX package:
+    ``method`` reaching the cuda backend through ``auto`` on a constant
+    system, ``storage_dtype`` reaching the reference backend through
+    ``auto`` on a periodic batch system."""
+    if case == "scan-on-cuda":
+        cfg, opts, backend = (3, "constant", False), {"method": "scan"}, \
+            "cuda"
+        system = _port_system(*cfg)
+        jsys = _jax_system(*cfg)
+    else:
+        cfg, opts, backend = (5, "batch", True), {"storage_dtype": "bf16"}, \
+            "reference"
+        system = _port_system(*cfg, batch=M)
+        jsys = _jax_system(*cfg, batch=M)
+    want = np.asarray(jsolver.solve(
+        jsolver.factorize(jsys, backend="reference"), jnp.asarray(_rhs())))
+    fact = factorize(system, backend="auto", **opts)
+    assert fact.backend == backend
+    assert _rel(solve(fact, torch.from_numpy(_rhs())), want) <= TOL
+    p = plan(system, backend="auto", **opts)
+    assert p.backend == backend
+    assert _rel(p.solve(torch.from_numpy(_rhs())), want) <= TOL
