@@ -10,7 +10,12 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
   2. build every kernel from the checkout's sources (``build/repro_torch/``);
   3. each kernel against its plain-torch version on the card, for every
      sweep variant and storage type, at main-path and edge shapes (the
-     batch sweep with distinct diagonals in every system; the shared
+     batch sweep with distinct diagonals in every system, on the route it
+     picks and, for tridiagonal systems, on the stream route forced, each
+     in its own chunks, also at a chunk's 16 rows either side, N = 37, its
+     on-chip route's last N and the first past it, where a forced on-chip
+     launch must raise, and on systems whose unscaled chunk products
+     overflow fp32 (b in [1e3, 2e3]); the shared
      sweep on the route it picks, on the partitioned route and, up to
      N = 4096, on the serial kernel forced, each in its own row blocks and
      chunks, also at its on-chip route's last N and the first past it,
@@ -43,7 +48,12 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
      beside the least time the card could take; each batch row also
      times the shared sweep on the same operator and shape, the paper's
      comparison, and holds the batch sweep to its plain version at the
-     full grid on distinct diagonals in every system; each recurrence row
+     full grid on distinct diagonals in every system; (d)'s row times the
+     on-chip route in turns with the stream route forced (``stream_ms``),
+     at fp32 and, once each, at fp64 (256 rows, its on-chip route's last
+     N) and bf16 storage, with the tile, its blocks per SM and ptxas
+     report, and runs the overflow-prone case at the full grid; each
+     recurrence row
      also times the public entry point on the case's own operands (the
      SSD gate broadcast), forward and forward + backward, beside the
      function's own byte floor; each on-chip fused row times the on-chip
@@ -104,6 +114,9 @@ _RECUR_TOLERANCE = {"float32": 1e-5, "float64": 1e-12, "bf16": 2e-2,
 # and past it on the partitioned route (``fused_shapes``)
 _RECUR_SHAPES = ((1, 333), (2, 333), (3, 333), (600, 1000), (4096, 65536))
 _FUSED_SHAPES = ((1, 333), (2, 333), (3, 333), (600, 1000), (512, 1 << 20))
+# the batch sweep's overflow-prone case (b in [1e3, 2e3]) on its on-chip
+# route; phase ``times`` also runs it at (d)'s full grid
+_OVERFLOW_SHAPES = ((40, 1000), (512, 1000))
 
 
 class SmokeFailure(Exception):
@@ -348,6 +361,59 @@ def shared_routes_vs_plain(name, label, spec, lhs, rhs, eps, compare) -> None:
         del got, want
 
 
+def batch_edge_shapes(storage) -> tuple:
+    """The batch sweep's on-chip route at ``storage``: a chunk's rows L
+    either side, 37, its last N and the first past it (the stream route),
+    at M = 1000, not a multiple of a block's 32 systems."""
+    from repro_torch.kernels import ops
+    rows, n_max = ops.BATCH_ROWS, ops.batch_onchip_max_rows(storage)
+    return tuple((n, 1000) for n in (rows - 1, rows, rows + 1, 37, n_max,
+                                     n_max + 1))
+
+
+def overflow_batch_operands(n: int, m: int, gen):
+    """Tridiagonal batch operands (fp32) whose unscaled chunk products
+    overflow: b in [1e3, 2e3], a and c in [-1, 1]."""
+    import torch
+
+    def u(lo, hi):
+        return (lo + (hi - lo) * torch.rand(n, m, generator=gen,
+                                            device="cuda",
+                                            dtype=torch.float64)).float()
+    rhs = torch.randn(n, m, generator=gen, device="cuda")
+    return [u(-1, 1), u(1e3, 2e3), u(-1, 1)], rhs
+
+
+def batch_routes_vs_plain(name, label, spec, diags, rhs, compare) -> None:
+    """The batch sweep on the route it picks and, for tridiagonal systems,
+    on the stream route forced, each against the plain version in the
+    route's chunks, each solve counted once under the spec's name; past
+    the on-chip route's N, and for pentadiagonal systems, a forced
+    on-chip launch must raise."""
+    from repro_torch.kernels import ops
+    n, m = rhs.shape
+    picked = ops.batch_route(n, rhs.dtype, spec.bandwidth)
+    routes = (picked.name, "stream") if spec.bandwidth == 3 else ("stream",)
+    for which in dict.fromkeys(routes):
+        r = ops.batch_route(n, rhs.dtype, spec.bandwidth, which)
+        ops.reset_launches()
+        got = ops.batch_sweep_cuda(spec, diags, rhs, route=which)
+        counted = dict(ops.LAUNCHES)
+        check(counted == {name: 1}, f"{name}/{label} N={n} {which}: "
+                                    f"launches {counted}")
+        compare(f"{name}/{which}", label, n, m, got,
+                ops.batch_sweep_plain(spec, diags, rhs, chunks=r.chunks))
+        del got
+    if picked.name == "stream":
+        try:
+            ops.batch_sweep_cuda(spec, diags, rhs, route="onchip")
+        except ValueError:
+            pass
+        else:
+            raise SmokeFailure(f"{name}/{label} N={n}: the on-chip route "
+                               "took a system it cannot hold")
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -395,18 +461,17 @@ def phase_kernel_vs_plain() -> None:
                             _RECUR_TOLERANCE[label])
                     del gates, q
                 continue
-            # the shared sweep also at its on-chip route's last N and the
-            # first past it
-            for n, m in (shapes if spec.layout == "batch"
-                         else shapes + shared_edge_shapes(storage)):
-                if spec.layout == "batch":
+            if spec.layout == "batch":
+                for n, m in shapes + batch_edge_shapes(storage):
                     diags, rhs = random_batch_operands(spec, n, m, storage,
                                                        gen)
-                    compare(name, label, n, m,
-                            ops.batch_sweep_cuda(spec, diags, rhs),
-                            ops.batch_sweep_plain(spec, diags, rhs))
+                    batch_routes_vs_plain(name, label, spec, diags, rhs,
+                                          compare)
                     del diags, rhs
-                    continue
+                continue
+            # the shared sweep also at its on-chip route's last N and the
+            # first past it
+            for n, m in shapes + shared_edge_shapes(storage):
                 if spec.bandwidth == 5 and n < 2:
                     continue   # the penta factor needs N >= 2
                 fkey = (spec.bandwidth, spec.uniform, n, dtype)
@@ -430,6 +495,22 @@ def phase_kernel_vs_plain() -> None:
                                            "its shared memory")
                 del lhs, rhs, eps
         torch.cuda.empty_cache()
+    # the batch sweep's on-chip route where unscaled chunk products
+    # overflow fp32: finite, and equal to the plain version in its chunks
+    # and to the sequential sweep
+    spec = engine.REGISTRY["thomas_batch"]
+    for n, m in _OVERFLOW_SHAPES:
+        diags, rhs = overflow_batch_operands(n, m, gen)
+        check(ops.batch_route(n, rhs.dtype, 3).name == "onchip",
+              f"overflow case N={n}: not on the on-chip route")
+        got = ops.batch_sweep_cuda(spec, diags, rhs)
+        check(torch.isfinite(got).all().item(),
+              f"overflow case N={n}: the on-chip route is not finite")
+        compare("thomas_batch/onchip_overflow", "float32", n, m, got,
+                ops.batch_sweep_plain(spec, diags, rhs))
+        compare("thomas_batch/onchip_overflow_vs_sequential", "float32", n,
+                m, got, ops.batch_sweep_plain(spec, diags, rhs, chunks=1))
+        del diags, rhs, got
     for kind in ("tridiag", "penta"):
         name = f"fused_cn_{kind}"
         kernel = getattr(fused_cn, f"{name}_cuda")
@@ -485,6 +566,12 @@ def phase_kernel_vs_plain() -> None:
           "tolerance": _TOLERANCE, "recurrence_tolerance": _RECUR_TOLERANCE,
           "fused_measure": "max|kernel - plain| / the largest term formed",
           "shared_routes": ["picked", "partition", "serial (N <= 4096)"],
+          "batch_routes": ["picked", "stream (tridiag)"],
+          "batch_edge_shapes": {
+              label: [list(s) for s in batch_edge_shapes(storage)]
+              for label, (_, storage) in storages.items()
+              if label != "float16"},
+          "overflow_shapes": [list(s) for s in _OVERFLOW_SHAPES],
           "shared_edge_shapes": {
               label: [list(s) for s in shared_edge_shapes(storage)]
               for label, (_, storage) in storages.items()
@@ -537,6 +624,7 @@ def main_path_cases():
 # must show: the forward sweep, plus the rolled adjoint on (d)
 _BACKWARD = ("a", "d")
 _BATCH_LAUNCHES = {"d": {"thomas_batch": 2}, "e": {"penta_batch": 1}}
+_BATCH_ROUTES = {"d": "onchip", "e": "stream"}
 
 
 def phase_main_path() -> dict:
@@ -574,6 +662,11 @@ def phase_main_path() -> dict:
             check(launches == _BATCH_LAUNCHES[key],
                   f"({key}) launches {launches}, expected "
                   f"{_BATCH_LAUNCHES[key]}")
+            # the route is a shape rule: (d) takes the on-chip one
+            route = ops.batch_route(n, rhs.dtype, system.bandwidth).name
+            check(route == _BATCH_ROUTES[key],
+                  f"({key}) batch route {route!r}, expected "
+                  f"{_BATCH_ROUTES[key]!r}")
         with torch.no_grad():
             d = rhs.detach()
             resid = (torch.linalg.vector_norm(banded_matvec(system, x) - d)
@@ -584,6 +677,8 @@ def phase_main_path() -> dict:
         row = {"phase": "main_path", "case": key, "title": title, "n": n,
                "m": m, "backend": fact.backend, "launches": launches,
                "seconds": seconds, "residual": resid}
+        if key in _BATCH_ROUTES:
+            row["batch_route"] = _BATCH_ROUTES[key]
         if key == "a":
             check(bwd > 0, "(a) the transposed sweep kernel never launched")
             with torch.no_grad():
@@ -1062,14 +1157,66 @@ def shared_times(key: str, title: str, n: int, m: int, entry: dict,
 LIBRARY_M = 4096
 
 
-def batch_times(key: str, entry: dict, card: str, gen) -> dict:
+def batch_ptxas(ptxas: dict) -> dict:
+    """The ptxas report of the batch sweep's kernels: the on-chip kernel
+    (``batch_onchip_kernel<storage,compute,rows>``) and the stream kernel
+    (``batch_sweep_kernel<storage,compute,order>``)."""
+    return {k: v for k, v in ptxas.items() if k.startswith("batch_")}
+
+
+def batch_route_pair(spec, n: int, m: int, storage, card: str, gen) -> dict:
+    """The batch sweep at (n, m, storage) on distinct diagonals: the route
+    it picks and the stream route forced, timed in turns, each beside the
+    bound and held to the plain version in its chunks."""
+    import torch
+    from repro_torch.kernels import ops
+
+    diags, rhs = random_batch_operands(spec, n, m, storage, gen)
+    picked = ops.batch_route(n, storage, spec.bandwidth)
+    turns = route_turns(
+        lambda which: ops.batch_sweep_cuda(spec, diags, rhs, route=which),
+        "stream", picked.name)
+    errs = {}
+    for which in (picked.name, "stream"):
+        r = ops.batch_route(n, storage, spec.bandwidth, which)
+        got = ops.batch_sweep_cuda(spec, diags, rhs, route=which)
+        errs[which] = rel_err(got, ops.batch_sweep_plain(spec, diags, rhs,
+                                                         chunks=r.chunks))
+        label = {torch.bfloat16: "bf16"}.get(storage, str(storage)[6:])
+        check(errs[which] <= _TOLERANCE[label],
+              f"batch {which} N={n} {label}: kernel vs plain "
+              f"{errs[which]:.3e}")
+        del got
+    del diags, rhs
+    torch.cuda.empty_cache()
+    rate, flops = card_rates(card)
+    nbytes = spec.traffic_bytes(n, m, storage)
+    bound_ms = max(nbytes / rate, ops_per_row(spec) * n * m
+                   / flops["float64" if storage == torch.float64
+                           else "float32"]) * 1e3
+    return {"n": n, "m": m, "sweep_route": dataclasses.asdict(picked),
+            "ms": turns[picked.name]["ms"],
+            "ms_q1": turns[picked.name]["ms_q1"],
+            "ms_q3": turns[picked.name]["ms_q3"],
+            "stream_ms": turns["stream"]["ms"],
+            "stream_ms_q1": turns["stream"]["ms_q1"],
+            "stream_ms_q3": turns["stream"]["ms_q3"],
+            "bound_ms": bound_ms, "rel_err": errs}
+
+
+def batch_times(key: str, entry: dict, card: str, gen, ptxas: dict) -> dict:
     """The batch sweep's row: kernel, plain, shared-sweep and library
-    times.  ``shared_ms`` is the shared sweep on one factor of the same
-    operator at the same N and M (constant mode): the paper's comparison
-    of cuThomasConstantBatch / cuPentConstantBatch with cuThomasBatch /
+    times.  ``ms`` is the route (d) or (e) takes, timed in turns with the
+    stream route forced (``stream_ms``; the same route at (e));
+    ``shared_ms`` is the shared sweep on one factor of the same operator
+    at the same N and M (constant mode): the paper's comparison of
+    cuThomasConstantBatch / cuPentConstantBatch with cuThomasBatch /
     cuPentBatch.  ``library_ms`` is a batched dense ``lu_solve`` from a
     precomputed ``lu_factor`` of ``LIBRARY_M`` systems, beside the kernel's
-    own time at that M (``ms_at_library_m``)."""
+    own time at that M (``ms_at_library_m``).  (d) also gives its tile
+    (systems, chunks, rows), blocks per SM and ptxas report, the same pair
+    of routes at fp64 (at its on-chip route's last N) and at bf16 storage,
+    and the overflow-prone case at its full grid."""
     import torch
     from repro_torch.core import dense_penta, dense_tridiag, penta, tridiag
     from repro_torch.kernels import engine, ops
@@ -1079,10 +1226,14 @@ def batch_times(key: str, entry: dict, card: str, gen) -> dict:
     system = entry["system"]
     bw = system.bandwidth
     spec = engine.find_spec(bw, "batch")
+    picked = ops.batch_route(n, torch.float32, bw)
     diags = list(reference.batch_diagonals(
         bw, factorize(system, backend="auto").stored))
     rhs = torch.randn(n, m, generator=gen, device="cuda")
-    stats = kernel_stats(lambda: ops.batch_sweep_cuda(spec, diags, rhs))
+    turns = route_turns(
+        lambda which: ops.batch_sweep_cuda(spec, diags, rhs, route=which),
+        "stream", picked.name)
+    stats, stream = turns[picked.name], turns["stream"]
     plain_ms = event_ms(lambda: ops.batch_sweep_plain(spec, diags, rhs),
                         reps=5, warmup=1)
     got = ops.batch_sweep_cuda(spec, diags, rhs)
@@ -1127,7 +1278,8 @@ def batch_times(key: str, entry: dict, card: str, gen) -> dict:
     torch.cuda.empty_cache()
 
     # the main path's systems all tile one LHS: at its full grid, hold the
-    # kernel to its plain version on distinct diagonals in every system too
+    # kernel (on the route the case takes) to its plain version in the
+    # route's chunks on distinct diagonals in every system too
     diags, rhs = random_batch_operands(spec, n, m, torch.float32, gen)
     got = ops.batch_sweep_cuda(spec, diags, rhs)
     want = ops.batch_sweep_plain(spec, diags, rhs)
@@ -1137,7 +1289,32 @@ def batch_times(key: str, entry: dict, card: str, gen) -> dict:
           f"{distinct_err:.3e} > {_TOLERANCE['float32']}")
     del diags, rhs, got, want
     torch.cuda.empty_cache()
+    extra = {}
+    if picked.name == "onchip":
+        diags, rhs = overflow_batch_operands(n, m, gen)
+        got = ops.batch_sweep_cuda(spec, diags, rhs)
+        check(torch.isfinite(got).all().item(),
+              f"({key}) overflow case at the full grid is not finite")
+        overflow_err = rel_err(got, ops.batch_sweep_plain(spec, diags, rhs))
+        check(overflow_err <= _TOLERANCE["float32"],
+              f"({key}) overflow case at the full grid: kernel vs plain "
+              f"{overflow_err:.3e}")
+        del diags, rhs, got
+        torch.cuda.empty_cache()
+        extra = {
+            "tile": {"systems": 32, "chunks": picked.chunks,
+                     "rows": picked.rows},
+            "blocks_per_sm": ops.batch_onchip_blocks_per_sm(torch.float32,
+                                                            picked.chunks),
+            "overflow_rel_err": overflow_err,
+            "ptxas": batch_ptxas(ptxas),
+            "fp64": batch_route_pair(
+                spec, ops.batch_onchip_max_rows(torch.float64), m,
+                torch.float64, card, gen),
+            "bf16": batch_route_pair(spec, n, m, torch.bfloat16, card, gen),
+        }
     bound_ms, bound_by = bound(spec, n, m, card)
+    floor = spec.traffic_bytes(n, m, torch.float32)
     return {
         "name": f"batch_sweep/{spec.name}/N{n}xM{m}",
         "route": "cuda",
@@ -1156,6 +1333,12 @@ def batch_times(key: str, entry: dict, card: str, gen) -> dict:
         "shared_ms": shared_ms, "batch_over_shared": stats["ms"] / shared_ms,
         "case": key, "title": title, "ms_q1": stats["ms_q1"],
         "ms_q3": stats["ms_q3"], "reps": stats["reps"],
+        "sweep_route": dataclasses.asdict(picked),
+        "gbps": floor / stats["ms"] / 1e6,
+        "stream_ms": stream["ms"], "stream_ms_q1": stream["ms_q1"],
+        "stream_ms_q3": stream["ms_q3"],
+        "stream_gbps": floor / stream["ms"] / 1e6,
+        **extra,
     }
 
 
@@ -1557,7 +1740,7 @@ def phase_times(main: dict, card: str, ptxas: dict) -> list:
                                      entry[f"fused_cn_{kind}_partition"],
                                      card, gen, ptxas))
         elif entry["system"].mode == "batch":
-            add(batch_times(key, entry, card, gen))
+            add(batch_times(key, entry, card, gen, ptxas))
         else:
             title, n, m, _make = main_path_cases()[key]
             add(shared_times(key, title, n, m, entry, card, gen, ptxas))
@@ -1601,7 +1784,8 @@ def main() -> int:
                             for line in log.splitlines() if "Used " in line]
                      for name, log in reports.items()}
         ptxas = ptxas_summary(reports.get("fused_cn", "")
-                              + reports.get("shared_sweep", ""))
+                              + reports.get("shared_sweep", "")
+                              + reports.get("batch_sweep", ""))
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "built": sorted(reports), "registers": registers,
               "ptxas": ptxas, "dir": str(build.BUILD_DIR)})

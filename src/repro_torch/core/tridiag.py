@@ -49,13 +49,24 @@ def _set(v: torch.Tensor, idx, value) -> torch.Tensor:
 
 
 def thomas_factor(a, b, c, *, method: str = "scan") -> TridiagFactor:
-    """Pre-factorisation (paper Eqs. 1-2). a, b, c: (N,) shared or (N, M)."""
-    if method != "scan":
-        raise ValueError(f"unknown method {method!r}; the port factors by "
-                         "'scan' only")
+    """Pre-factorisation (paper Eqs. 1-2). a, b, c: (N,) shared or (N, M).
+
+    ``method="assoc"`` (N,) diagonals only: c_hat_i = c_i / (b_i - a_i
+    c_hat_{i-1}) is a Möbius recurrence, tracked as the ratio num_i / den_i
+    of the 2×2 companion products
+    ``(num_i, den_i) = [[0, c_i], [-a_i, b_i]] @ (num_{i-1}, den_{i-1})``
+    from (0, 1), unscaled, as the JAX package forms them: the running
+    ``den`` grows like the product of the pivots and overflows for large
+    diagonals or N (b = 1e3 overflows fp32 by N = 40).  The JAX package's
+    product has no batch axis and refuses (N, M) diagonals; so does this
+    one."""
+    if method not in ("scan", "assoc"):
+        raise ValueError(f"unknown method {method!r}")
     a = _set(torch.as_tensor(a), 0, 0)   # a_0 is outside the matrix
     b = torch.as_tensor(b)
     c = torch.as_tensor(c)
+    if method == "assoc":
+        return _thomas_factor_assoc(a, b, c)
     inv_denom = torch.empty_like(b)
     c_hat = torch.empty_like(b)
     c_hat_prev = torch.zeros_like(b[0])
@@ -65,6 +76,28 @@ def thomas_factor(a, b, c, *, method: str = "scan") -> TridiagFactor:
         inv_denom[i] = inv
         c_hat[i] = c_hat_prev
     return TridiagFactor(a=a, inv_denom=inv_denom, c_hat=c_hat)
+
+
+def _thomas_factor_assoc(a, b, c) -> TridiagFactor:
+    """The factor from the prefix products of the 2×2 companion matrices
+    (``thomas_factor(method="assoc")``): c_hat = num / den and inv_denom =
+    den_{i-1} / den_i."""
+    if not a.ndim == b.ndim == c.ndim == 1:
+        raise ValueError("thomas_factor(method='assoc') takes (N,) "
+                         f"diagonals, got shapes {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}, {tuple(c.shape)}: its 2×2 "
+                         "companion product has no batch axis (the JAX "
+                         "package's einsum refuses (N, M) diagonals too)")
+    zero = torch.zeros_like(b)
+    companion = torch.stack([torch.stack([zero, c], 1),
+                             torch.stack([-a, b], 1)], 1)   # (N, 2, 2)
+    prod = torch.eye(2, dtype=b.dtype, device=b.device)
+    num, den = torch.empty_like(b), torch.empty_like(b)
+    for i in range(b.shape[0]):
+        prod = companion[i] @ prod
+        num[i], den[i] = prod[0, 1], prod[1, 1]   # applied to (0, 1)
+    den_prev = torch.cat([torch.ones_like(den[:1]), den[:-1]])
+    return TridiagFactor(a=a, inv_denom=den_prev / den, c_hat=num / den)
 
 
 def thomas_solve(f: TridiagFactor, d, *, method: str = "scan") -> torch.Tensor:

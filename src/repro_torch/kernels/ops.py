@@ -29,7 +29,16 @@ The per-system-LHS half (cuThomasBatch / cuPentBatch):
     their own (N, M)-interleaved diagonals, with the factorisation fused
     into the solve;
   * ``batch_sweep`` dispatches the same way, to ``csrc/batch_sweep.cu``
-    or to ``batch_sweep_plain``.
+    or to ``batch_sweep_plain``;
+  * ``batch_route(N, dtype, bandwidth)`` picks the kernel's route: on chip
+    for tridiagonal systems up to ``batch_onchip_max_rows`` (512 at
+    float32 and bf16, 256 at float64: each system's rows split into row
+    chunks whose factor is joined by a fold of 2×2 companion products,
+    every intermediate kept on the SM), else stream (one thread walks a
+    whole system, the factor and intermediate through device memory).
+    The plain version takes the same chunks and repeats that order;
+    ``batch_sweep_cuda`` takes a forced ``route=`` to time one against
+    the other.
 
 The gated recurrences (``h_i = p_i h_{i-1} + q_i`` and order 2):
 
@@ -63,9 +72,10 @@ _ARGTYPES = {
     "shared_sweep": [_C_INT, _C_INT, _C_INT, _C_INT, _C_INT, _C_INT, _C_PTR,
                      _C_INT, _C_PTR, _C_PTR, _C_PTR, _C_PTR, _C_I64, _C_I64,
                      ctypes.POINTER(_C_INT), _C_PTR],
-    # dtype, bandwidth, diags, rhs, out, work, n, m, threads, stream
-    "batch_sweep": [_C_INT, _C_INT, ctypes.POINTER(_C_PTR), _C_PTR, _C_PTR,
-                    _C_PTR, _C_I64, _C_I64, _C_INT, _C_PTR],
+    # dtype, bandwidth, route, chunks, diags, rhs, out, work, n, m,
+    # threads, stream
+    "batch_sweep": [_C_INT, _C_INT, _C_INT, _C_INT, ctypes.POINTER(_C_PTR),
+                    _C_PTR, _C_PTR, _C_PTR, _C_I64, _C_I64, _C_INT, _C_PTR],
     # dtype, order, reverse, gates, q, out, n, m, threads, stream
     "recurrence_sweep": [_C_INT, _C_INT, _C_INT, ctypes.POINTER(_C_PTR),
                          _C_PTR, _C_PTR, _C_I64, _C_I64, _C_INT, _C_PTR],
@@ -92,6 +102,15 @@ SMEM_PER_BLOCK = 232_448
 #: Bytes of column in one row block of the shared sweep's partitioned route.
 ROW_BLOCK_BYTES = 2048
 SHARED_ROUTES = ("onchip", "partition", "serial")
+#: The batch sweep's routes (``csrc/batch_sweep.cu``): on chip (tridiagonal,
+#: at most ``batch_onchip_chunks`` row chunks of BATCH_ROWS rows a block of
+#: TILE_M systems) and stream (one thread a system).
+BATCH_ROUTES = ("onchip", "stream")
+BATCH_ROWS = 16
+_BATCH_ROUTE_CODES = {"stream": 0, "onchip": 1}
+#: A chunk's companion product is rescaled by a power of two when its
+#: largest entry leaves [1 / RESCALE_AT, RESCALE_AT].
+RESCALE_AT = 2.0 ** 60
 _ROUTE_CODES = {"serial": 0, "onchip": 1, "partition": 2}
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 #: The recurrence kernel also takes fp16 (fp32 carries, as for bf16).
@@ -676,17 +695,165 @@ def shared_sweep(spec: SweepSpec, lhs: torch.Tensor, rhs: torch.Tensor,
 # The batch sweep: kernel, plain version, dispatch
 # ---------------------------------------------------------------------------
 
-def batch_sweep_plain(spec: SweepSpec, diags, rhs: torch.Tensor
-                      ) -> torch.Tensor:
-    """The batch kernel's function in plain torch, one row at a time:
-    the factorisation fused into the forward substitution in
-    ``_factor_pass``'s arithmetic order (``repro.kernels.engine``), the
-    per-system coefficients kept in a workspace, then the descending
-    ``_BATCH_BWD`` pass.  ``diags`` are the ``bandwidth`` (N, M)
+def batch_onchip_chunks(dtype) -> int:
+    """Row chunks a block of the batch sweep's on-chip route takes at
+    most: 32 at float compute (float32 and bf16 storage), 16 at float64,
+    whose registers are twice as wide."""
+    return 32 if _compute_itemsize(dtype) == 4 else 16
+
+
+def batch_onchip_max_rows(dtype) -> int:
+    """The largest N of the batch sweep's on-chip route: 512 at float32
+    and bf16 storage, 256 at float64."""
+    return batch_onchip_chunks(dtype) * BATCH_ROWS
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchRoute:
+    """How ``csrc/batch_sweep.cu`` solves one (N, dtype, bandwidth): the
+    route, its row chunks a system and the rows of a chunk (``rows`` =
+    ceil(N / chunks), the last chunk ragged; the whole column on the
+    stream route)."""
+
+    name: str
+    chunks: int
+    rows: int
+
+
+def batch_route(n: int, dtype, bandwidth: int,
+                which: str | None = None) -> BatchRoute:
+    """The route of the batch sweep at (N, dtype, bandwidth): ``"onchip"``
+    for tridiagonal systems up to ``batch_onchip_max_rows``, in the fewest
+    chunks of at most ``BATCH_ROWS`` rows, else ``"stream"``: a
+    shape rule, not a fallback.  ``which`` names a route to take instead;
+    ``"onchip"`` past its rows or for a pentadiagonal system raises.  A
+    pure function of its arguments."""
+    n_max = batch_onchip_max_rows(dtype)
+    if which is None:
+        which = "onchip" if bandwidth == 3 and n <= n_max else "stream"
+    if which == "onchip":
+        if bandwidth != 3:
+            raise ValueError("batch_sweep: the on-chip route solves "
+                             "tridiagonal systems only; pentadiagonal ones "
+                             "take the stream route")
+        if n > n_max:
+            raise ValueError(f"batch_sweep: N = {n} is past the on-chip "
+                             f"route's {n_max} rows at {dtype}")
+        chunks = max(1, -(-n // BATCH_ROWS))
+        return BatchRoute("onchip", chunks, max(1, -(-n // chunks)))
+    if which == "stream":
+        return BatchRoute("stream", 1, n)
+    raise ValueError(f"batch_sweep: route must be one of {BATCH_ROUTES}, "
+                     f"got {which!r}")
+
+
+def _rescaled(p: list) -> list:
+    """The 2×2 products ``p`` = [p00, p01, p10, p11], each column of
+    systems whose largest entry leaves [1 / RESCALE_AT, RESCALE_AT] scaled
+    by the power of two that brings it into [1/2, 1) (exact; zero and
+    non-finite products stay)."""
+    big = torch.stack([q.abs() for q in p]).amax(0)
+    out = (big > RESCALE_AT) | ((big < 1 / RESCALE_AT) & (big > 0))
+    e = torch.where(out, torch.frexp(big).exponent, 0).to(big.dtype)
+    scale = torch.exp2(-e)
+    return [q * scale for q in p]
+
+
+def _batch_chunked(diags, rhs: torch.Tensor, chunks: int) -> torch.Tensor:
+    """The on-chip route's order, all chunks at once: each chunk's
+    companion product (rescaled row by row), the fold to each chunk's true
+    c^ start, the factor from it with d^ from a zero carry and its
+    response, the fold of the d^ carries, d^ from them; back substitution
+    from a zero carry with its response, the fold, and x from the true
+    carries.  Every row in ``_factor_pass``'s arithmetic."""
+    cdt = compute_dtype(rhs.dtype)
+    n, m = rhs.shape
+    rows = -(-n // chunks)
+    pad = chunks * rows - n
+
+    def tiled(x: torch.Tensor, fill: float) -> torch.Tensor:
+        x = torch.cat([x.to(cdt), torch.full((pad, m), fill, dtype=cdt,
+                                             device=rhs.device)])
+        return x.reshape(chunks, rows, m)
+
+    a, b, c, d = (tiled(x, f) for x, f in
+                  zip((*diags, rhs), (0.0, 1.0, 0.0, 0.0)))
+    live = (torch.arange(chunks * rows, device=rhs.device) < n).reshape(
+        chunks, rows, 1)
+    ones = torch.ones((chunks, m), dtype=cdt, device=rhs.device)
+    zeros = torch.zeros_like(ones)
+
+    def keep(t, new: list, old: list) -> list:
+        return [torch.where(live[:, t], x, y) for x, y in zip(new, old)]
+
+    p = [ones, zeros, zeros, ones]
+    for t in range(rows):
+        at, bt, ct = a[:, t], b[:, t], c[:, t]
+        p = keep(t, _rescaled([ct * p[2], ct * p[3], bt * p[2] - at * p[0],
+                               bt * p[3] - at * p[1]]), p)
+    starts, chat = [zeros[0]], zeros[0]
+    for k in range(chunks - 1):
+        chat = (p[0][k] * chat + p[1][k]) / (p[2][k] * chat + p[3][k])
+        starts.append(chat)
+
+    chat, g, rho = torch.stack(starts), zeros, ones
+    inv_all = torch.empty_like(a)
+    chat_all = torch.empty_like(a)
+    for t in range(rows):
+        at = a[:, t]
+        inv = 1 / (b[:, t] - at * chat)
+        chat, g, rho = keep(t, [c[:, t] * inv, (d[:, t] - at * g) * inv,
+                                -at * inv * rho], [chat, g, rho])
+        inv_all[:, t], chat_all[:, t] = inv, chat
+    dh, carries = zeros[0], []
+    for k in range(chunks):
+        carries.append(dh)
+        dh = g[k] + rho[k] * dh
+
+    dh = torch.stack(carries)
+    dhat = torch.empty_like(a)
+    for t in range(rows):
+        (dh,) = keep(t, [(d[:, t] - a[:, t] * dh) * inv_all[:, t]], [dh])
+        dhat[:, t] = dh
+    y, sg = zeros, ones
+    for t in range(rows - 1, -1, -1):
+        y, sg = keep(t, [dhat[:, t] - chat_all[:, t] * y,
+                         -chat_all[:, t] * sg], [y, sg])
+    x, carries = zeros[0], [None] * chunks
+    for k in range(chunks - 1, -1, -1):
+        carries[k] = x
+        x = y[k] + sg[k] * x
+
+    x = torch.stack(carries)
+    out = torch.empty_like(a)
+    for t in range(rows - 1, -1, -1):
+        (x,) = keep(t, [dhat[:, t] - chat_all[:, t] * x], [x])
+        out[:, t] = x
+    return out.reshape(chunks * rows, m)[:n]
+
+
+def batch_sweep_plain(spec: SweepSpec, diags, rhs: torch.Tensor, *,
+                      chunks: int | None = None) -> torch.Tensor:
+    """The batch kernel's function in plain torch, in the order of the
+    route's ``chunks`` row chunks (default: ``batch_route``'s).  One chunk
+    is the stream route's sequential sweep, one row at a time: the
+    factorisation fused into the forward substitution in ``_factor_pass``'s
+    arithmetic order (``repro.kernels.engine``), the per-system
+    coefficients kept in a workspace, then the descending ``_BATCH_BWD``
+    pass.  More chunks (tridiagonal only) run ``_batch_chunked``, the
+    on-chip route's order.  ``diags`` are the ``bandwidth`` (N, M)
     diagonals, sub-most first.  bf16 operands compute (and return) fp32,
     as the kernel does."""
     cdt = compute_dtype(rhs.dtype)
     n, m = rhs.shape
+    if chunks is None:
+        chunks = batch_route(n, rhs.dtype, spec.bandwidth).chunks
+    if chunks != 1:
+        if spec.order != 1 or not 1 <= chunks <= max(n, 1):
+            raise ValueError(f"batch_sweep: {chunks} row chunks do not "
+                             f"split {spec.name} over N = {n} (tridiagonal "
+                             "only, at most N chunks)")
+        return _batch_chunked(diags, rhs, chunks)
     out = torch.empty((n, m), dtype=cdt, device=rhs.device)
     coefs = torch.empty((spec.n_coefs, n, m), dtype=cdt, device=rhs.device)
     zeros = torch.zeros((m,), dtype=cdt, device=rhs.device)
@@ -727,12 +894,17 @@ def batch_sweep_plain(spec: SweepSpec, diags, rhs: torch.Tensor
     return out
 
 
-def batch_sweep_cuda(spec: SweepSpec, diags, rhs: torch.Tensor
-                     ) -> torch.Tensor:
-    """Launch ``csrc/batch_sweep.cu`` on the current stream, with the
-    (order, N, M) coefficient workspace allocated here.  Validates device,
-    dtype, shape and contiguity and raises on what the kernel does not
-    take; raises when the launch reports a CUDA error."""
+def batch_sweep_cuda(spec: SweepSpec, diags, rhs: torch.Tensor, *,
+                     route: str | None = None) -> torch.Tensor:
+    """Launch ``csrc/batch_sweep.cu`` on the current stream, on the route
+    ``batch_route(N, dtype, bandwidth)`` picks, in its chunks; the stream
+    route's (order, N, M) coefficient workspace is allocated here, the
+    on-chip route needs none.  ``route`` forces the other route, to time
+    one against the other; a route that cannot take the system raises,
+    and nothing falls back.  Validates device, dtype, shape and contiguity
+    and raises on what the kernel does not take; raises when the launch
+    reports a CUDA error.  Counts one launch a solve under the spec's
+    name."""
     n, m = rhs.shape
     operands = [*diags, rhs]
     if spec.layout != "batch" or len(diags) != spec.bandwidth:
@@ -749,6 +921,7 @@ def batch_sweep_cuda(spec: SweepSpec, diags, rhs: torch.Tensor
         raise ValueError(f"batch_sweep: every diagonal must be ({n}, {m})")
     if not all(t.is_contiguous() for t in operands):
         raise ValueError("batch_sweep: operands must be contiguous")
+    picked = batch_route(n, rhs.dtype, spec.bandwidth, route)
     cdt = compute_dtype(rhs.dtype)
     out = torch.empty((n, m), dtype=cdt, device=rhs.device)
     if n == 0 or m == 0:
@@ -756,23 +929,42 @@ def batch_sweep_cuda(spec: SweepSpec, diags, rhs: torch.Tensor
     # ``work`` is freed on return while the kernel may still run: the
     # caching allocator reuses the block only for work queued after the
     # kernel on the same stream.
-    work = torch.empty((spec.n_coefs, n, m), dtype=cdt, device=rhs.device)
+    work = None if picked.name == "onchip" else torch.empty(
+        (spec.n_coefs, n, m), dtype=cdt, device=rhs.device)
     fn = _kernel("batch_sweep")
     ptrs = (ctypes.c_void_p * spec.bandwidth)(*(t.data_ptr() for t in diags))
     with torch.cuda.device(rhs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(_DTYPE_CODES[rhs.dtype], spec.bandwidth, ptrs,
-                rhs.data_ptr(), out.data_ptr(), work.data_ptr(), n, m,
+        rc = fn(_DTYPE_CODES[rhs.dtype], spec.bandwidth,
+                _BATCH_ROUTE_CODES[picked.name], picked.chunks, ptrs,
+                rhs.data_ptr(), out.data_ptr(),
+                None if work is None else work.data_ptr(), n, m,
                 DEFAULT_THREADS, stream)
     if rc != 0:
-        raise RuntimeError(f"batch_sweep launch failed: CUDA error {rc}")
+        raise RuntimeError(f"batch_sweep ({picked.name} route) launch "
+                           f"failed: CUDA error {rc}")
     LAUNCHES[spec.name] = LAUNCHES.get(spec.name, 0) + 1
     return out
 
 
+def batch_onchip_blocks_per_sm(dtype, chunks: int) -> int:
+    """Blocks of the batch sweep's on-chip kernel in ``chunks`` chunks
+    that one SM holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
+    needs the card."""
+    fn = build.load("batch_sweep").batch_sweep_onchip_blocks
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_C_INT, _C_INT, ctypes.POINTER(_C_INT)]
+    blocks = ctypes.c_int(0)
+    rc = fn(_DTYPE_CODES[dtype], chunks, ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"batch_sweep_onchip_blocks: CUDA error {rc}")
+    return blocks.value
+
+
 def batch_sweep(spec: SweepSpec, diags, rhs: torch.Tensor) -> torch.Tensor:
     """The batch solve on the kernel for CUDA tensors, on the plain version
-    for CPU tensors; any other device raises."""
+    (in the chunks of the route the kernel would take) for CPU tensors;
+    any other device raises."""
     if any(t.dtype != rhs.dtype for t in diags):
         raise TypeError(f"batch_sweep: diagonal dtypes "
                         f"{[t.dtype for t in diags]} and rhs dtype "
@@ -956,13 +1148,16 @@ def thomas_batch(a, b, c, d, *, storage_dtype=None) -> torch.Tensor:
 
     Unlike the JAX package there is no lane or sweep padding (and so no
     identity padding of the main diagonal): the kernel masks the ragged
-    edge of M itself and walks all N rows."""
+    edge of M itself, and ``batch_route`` picks how it walks the N rows
+    (on chip in row chunks up to ``batch_onchip_max_rows``, else
+    streamed)."""
     *diags, d = _as_stored((a, b, c, d), storage_dtype)
     return batch_sweep(find_spec(3, "batch"), diags, d)
 
 
 def penta_batch(a, b, c, d, e, rhs, *, storage_dtype=None) -> torch.Tensor:
     """Per-system-LHS batched penta solve (cuPentBatch).  a..e and rhs:
-    (N, M), ``c`` the main diagonal; no padding, as for ``thomas_batch``."""
+    (N, M), ``c`` the main diagonal; no padding, as for ``thomas_batch``;
+    always on the stream route."""
     *diags, rhs = _as_stored((a, b, c, d, e, rhs), storage_dtype)
     return batch_sweep(find_spec(5, "batch"), diags, rhs)

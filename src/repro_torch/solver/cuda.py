@@ -10,8 +10,14 @@ the chunks' carry responses; past that the partitioned route cuts each
 column into row blocks of 512 / 256 rows (four launches: coefficients,
 summaries, chain, finish).  Every Dirichlet batch system goes to the batch
 sweep (``kernels/csrc/batch_sweep.cu``), each system's own diagonals
-factored inside the solve.  On CPU tensors the same calls run the kernels'
-plain versions (``kernels.ops``).
+factored inside the solve, on the route ``kernels.ops.batch_route``
+picks: a tridiagonal system up to N = 512 (fp32, bf16) / 256 (fp64) on
+chip (32 systems a block, their rows in chunks of 16 joined by folds of
+the factor's 2×2 companion products and of the linear carries, each
+operand read once and x written once); past that, and every
+pentadiagonal system, streamed (one thread a system, the factor and
+intermediate through device memory).  On CPU tensors the same calls run
+the kernels' plain versions (``kernels.ops``), in the route's chunks.
 
 Periodic boundaries: the kernel solves the truncated band; the rank-1
 Sherman-Morrison (tridiag) / rank-4 Woodbury (penta) corner corrections

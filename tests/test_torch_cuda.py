@@ -4,7 +4,9 @@
 partitioned past ``ops.onchip_max_rows``, and the serial kernel forced),
 ``batch_sweep.cu`` (per-system
 diagonals, factorisation fused into the solve; tested with distinct
-diagonals in every system), ``recurrence_sweep.cu`` (the gated
+diagonals in every system, on its on-chip route up to
+``ops.batch_onchip_max_rows`` and its stream route forced, each against
+the plain version in the route's own chunks), ``recurrence_sweep.cu`` (the gated
 recurrences, distinct gates in every column, and their autograd) and
 ``fused_cn.cu`` (the two fused CN steps).
 
@@ -299,6 +301,79 @@ def test_batch_solver_rolled_adjoint_on_card_matches_cpu(bw, cuda_device):
     want.pow(2).sum().backward()
     assert _rel(x, want) <= 1e-5
     assert _rel(r_card.grad, r_host.grad) <= 1e-5
+
+
+def _batch_edge_n(n, dtype) -> int:
+    """``n``, or the batch sweep's on-chip chunk rows L either side
+    ("L-1", "L", "L+1"), its last N ("n_max") and the first past it."""
+    if isinstance(n, int):
+        return n
+    rows = ops.BATCH_ROWS
+    n_max = ops.batch_onchip_max_rows(dtype)
+    return {"L-1": rows - 1, "L": rows, "L+1": rows + 1, "n_max": n_max,
+            "n_max+1": n_max + 1}[n]
+
+
+@pytest.mark.parametrize("n", (1, 2, 3, "L-1", "L", "L+1", 37, 512, "n_max",
+                               "n_max+1"))
+@pytest.mark.parametrize("storage", sorted(STORAGES))
+def test_batch_routes_match_chunked_plain(storage, n, cuda_device):
+    """The route the tridiagonal batch sweep picks (on chip up to N_max)
+    and the stream route forced, each against the plain version in its own
+    chunks, at a ragged M; each solve counted once under ``thomas_batch``."""
+    spec = engine.REGISTRY["thomas_batch"]
+    dtype = _TORCH_STORAGE[storage]
+    n = _batch_edge_n(n, dtype)
+    *diags, rhs = _batch_operands(3, n, 333, dtype, seed=n)
+    picked = ops.batch_route(n, dtype, 3)
+    assert picked.name == ("onchip" if n <= ops.batch_onchip_max_rows(dtype)
+                           else "stream")
+    for route in dict.fromkeys((picked.name, "stream")):
+        r = ops.batch_route(n, dtype, 3, route)
+        want = ops.batch_sweep_plain(spec, diags, rhs, chunks=r.chunks)
+        before = ops.LAUNCHES.get(spec.name, 0)
+        got = ops.batch_sweep_cuda(spec, diags, rhs, route=route)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES[spec.name] == before + 1
+        assert got.is_cuda and got.dtype == want.dtype
+        assert _rel(got, want) <= STORAGES[storage], r
+
+
+@pytest.mark.parametrize("n", (40, 512))
+def test_batch_onchip_route_rescales_overflowing_products(n, cuda_device):
+    """b in [1e3, 2e3]: a chunk's unscaled companion product overflows
+    fp32; the kernel stays finite and agrees with the plain version in
+    its chunks and with the sequential sweep."""
+    spec = engine.REGISTRY["thomas_batch"]
+    rng = np.random.default_rng(n)
+    arrays = [rng.uniform(-1, 1, (n, 333)), rng.uniform(1e3, 2e3, (n, 333)),
+              rng.uniform(-1, 1, (n, 333)), rng.normal(size=(n, 333))]
+    *diags, rhs = [torch.from_numpy(x).to("cuda", torch.float32)
+                   for x in arrays]
+    got = ops.batch_sweep_cuda(spec, diags, rhs)
+    torch.cuda.synchronize()
+    assert ops.batch_route(n, torch.float32, 3).name == "onchip"
+    assert torch.isfinite(got).all()
+    assert _rel(got, ops.batch_sweep_plain(spec, diags, rhs)) <= 1e-5
+    assert _rel(got, ops.batch_sweep_plain(spec, diags, rhs,
+                                           chunks=1)) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64,
+                                   torch.bfloat16))
+def test_batch_forced_onchip_refusals(dtype, cuda_device):
+    """A forced on-chip launch past N_max or for a pentadiagonal system
+    raises and launches nothing."""
+    tri, pen = engine.REGISTRY["thomas_batch"], engine.REGISTRY["penta_batch"]
+    n = ops.batch_onchip_max_rows(dtype) + 1
+    *diags, rhs = _batch_operands(3, n, 64, dtype, seed=1)
+    *pdiags, prhs = _batch_operands(5, 37, 64, dtype, seed=2)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="past the on-chip"):
+        ops.batch_sweep_cuda(tri, diags, rhs, route="onchip")
+    with pytest.raises(ValueError, match="tridiagonal"):
+        ops.batch_sweep_cuda(pen, pdiags, prhs, route="onchip")
+    assert ops.LAUNCHES == before
 
 
 # ---------------------------------------------------------------------------
