@@ -70,7 +70,19 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
      ptxas report; (a) and (k) also at 1–16 row chunks and at 16- and
      32-column tiles, the on-chip rows the partitioned route forced, and
      (c) each of the partitioned route's four launches alone;
-  7. one summary line (the run's seconds and peak device memory) and one
+  7. (m) serving mamba2-130m at its published config (24 layers, d_model
+     768, vocab 50280, bf16, random weights from the seed) through
+     ``repro_torch.launch.serve.serve``: 16 requests in waves of 8, prompt
+     1024 tokens, 64 generated, counts read around it (24 ``recur1`` a
+     prefill, none in decode), prefill ms a wave, decode ms a token,
+     tokens/s and peak memory; one prefill timed with CUDA events and
+     traced with ``torch.profiler``; the fp32 prefill on the card against
+     the CPU's plain run on the same weights (log-probs within 1e-3); and
+     teacher-forced decode over a 64-token prompt against the prefill
+     (fp32 within the JAX suite's 3e-2 bar, bf16 within three times what
+     bf16 rounding alone moves the prefill from its fp32 run).  The
+     recurrence kernel's row at (m)'s operand gives its share of a prefill;
+  8. one summary line (the run's seconds and peak device memory) and one
      ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -983,6 +995,178 @@ def phase_pde() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# case (m): serving mamba2-130m at its published config
+# ---------------------------------------------------------------------------
+
+# src/repro_torch/configs/mamba2_130m.py (as src/repro/configs/): 24 layers,
+# d_model 768, vocab 50280, ssm_state 128, head_dim 64, chunk 64, bf16
+SERVE_ARCH = "mamba2-130m"
+SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 16, 8, 1024, 64
+# the fp32 prefill on the card against the CPU's; teacher-forced decode
+# against prefill at fp32 and bf16 (ROADMAP Queue 3 item 9)
+PARITY_BATCH, PARITY_SEQ, PARITY_TOL = 1, 256, 1e-3
+REPLAY_BATCH, REPLAY_SEQ, REPLAY_TOL, REPLAY_NOISE = 2, 64, 3e-2, 3.0
+
+
+def _device_kernel_ms(prof) -> tuple:
+    """(all kernels, recurrence kernels) device ms of a profiler trace."""
+    from torch.autograd import DeviceType
+    total = recur = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        total += us
+        if "recurrence" in e.key:
+            recur += us
+    return total / 1e3, recur / 1e3
+
+
+def _replay(model, tokens) -> tuple:
+    """Normalised log-probs of teacher-forced decode over ``tokens`` from
+    an empty cache, and of the prefill of the same tokens."""
+    pre, _ = model.prefill({"tokens": tokens})
+    cache = model.init_cache(*tokens.shape)
+    for t in range(tokens.shape[1]):
+        step, cache = model.decode(cache, tokens[:, t], t)
+    return (step - step.max(-1, keepdim=True).values,
+            pre - pre.max(-1, keepdim=True).values)
+
+
+def phase_serve(card: str) -> dict:
+    """(m): ``repro_torch.launch.serve.serve`` at mamba2-130m's published
+    config, random weights from the seed, with the counts set to 0 just
+    before it and read just after: one ``recur1`` launch per layer a
+    prefill and none in decode.  Then one prefill (B 8, S 1024) timed with
+    CUDA events and traced; the fp32 prefill on the card (the kernel)
+    against the CPU (its plain version) on the same weights, log-probs
+    within 1e-3; teacher-forced decode over a 64-token prompt against the
+    prefill, normalised log-probs: at fp32 within the JAX suite's 3e-2
+    bar, at bf16 within the rounding's own reach (below)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import Model, build_model
+    from repro_torch.models.params import tree_map
+
+    cfg = get_config(SERVE_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.vocab, cfg.ssm_state,
+           cfg.ssm_head_dim, cfg.ssm_chunk, cfg.dtype)
+          == (24, 768, 50280, 128, 64, 64, "bfloat16"),
+          f"(m) {SERVE_ARCH} is not at its published config: {cfg}")
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out = serve(cfg, requests=SERVE_REQUESTS, batch=SERVE_BATCH,
+                prompt_len=SERVE_PROMPT, gen=SERVE_GEN, device="cuda",
+                seed=SEED, log=lambda line: print(line, flush=True))
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    waves = out["waves"]
+    per_prefill = launches.get("recur1", 0) / len(waves)
+    check(launches == {"recur1": len(waves) * cfg.n_layers},
+          f"(m) launches {launches}, expected {cfg.n_layers} recur1 a "
+          f"prefill over {len(waves)} waves")
+    state = out["cache"]["state"]
+    check(out["served"] == SERVE_REQUESTS
+          and tuple(state.shape) == (cfg.n_layers, SERVE_BATCH,
+                                     cfg.ssm_heads, cfg.ssm_head_dim,
+                                     cfg.ssm_state)
+          and torch.isfinite(state).all().item(),
+          "(m) the decode state is not finite of shape (L, B, H, P, N)")
+    del out
+    row = {"phase": "serve", "case": "m", "arch": SERVE_ARCH,
+           "requests": SERVE_REQUESTS, "batch": SERVE_BATCH,
+           "prompt": SERVE_PROMPT, "gen": SERVE_GEN, "launches": launches,
+           "recur1_per_prefill": per_prefill,
+           "prefill_ms": [w["prefill_s"] * 1e3 for w in waves],
+           "decode_ms_per_token": [w["decode_s"] * 1e3 / w["decode_steps"]
+                                   for w in waves],
+           "tokens_per_s": SERVE_REQUESTS * SERVE_GEN
+           / sum(w["prefill_s"] + w["decode_s"] for w in waves),
+           "serve_seconds": time.perf_counter() - t0,
+           "peak_device_bytes": peak}
+
+    # one prefill of a wave's shape: CUDA events, then a profiler trace
+    model = build_model(cfg, device="cuda", seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    tokens = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                           generator=gen, device="cuda")
+    stats = kernel_stats(lambda: model.prefill({"tokens": tokens}))
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+    kernels_ms, recur_ms = _device_kernel_ms(prof)
+    row.update({"prefill_event_ms": stats["ms"],
+                "prefill_event_ms_q1": stats["ms_q1"],
+                "prefill_event_ms_q3": stats["ms_q3"],
+                "trace_kernels_ms": kernels_ms,
+                "trace_recurrence_ms": recur_ms,
+                "trace_recurrence_share": (recur_ms / kernels_ms
+                                           if kernels_ms else None)})
+    del model, tokens, prof
+
+    # the kernel against its plain version on the model path, fp32
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    cpu = Model(cfg32, device="cpu", seed=SEED + 5)
+    card32 = Model(cfg32, device="cuda", params=cpu.params.tree())
+    toks = torch.randint(0, cfg.vocab, (PARITY_BATCH, PARITY_SEQ),
+                         generator=torch.Generator().manual_seed(SEED + 5))
+    ops.reset_launches()
+    got, _ = card32.prefill({"tokens": toks.cuda()})
+    torch.cuda.synchronize()
+    check(ops.LAUNCHES == {"recur1": cfg.n_layers},
+          f"(m) fp32 prefill launches {ops.LAUNCHES}")
+    want, _ = cpu.prefill({"tokens": toks})
+    lp_err = (torch.log_softmax(got, -1).cpu()
+              - torch.log_softmax(want, -1)).abs().max().item()
+    check(lp_err <= PARITY_TOL,
+          f"(m) fp32 prefill log-probs, card vs CPU, max|Δ| {lp_err:.3e}")
+    del cpu, card32, got, want
+
+    # teacher-forced decode against prefill at the full config: fp32 within
+    # the JAX suite's bar; bf16, where 24 layers of rounding move the
+    # prefill itself about 1 from its fp32 run (and JAX's own replay misses
+    # the bar), no further from the fp32 prefill than REPLAY_NOISE times
+    # the bf16 prefill is
+    model = build_model(cfg, device="cuda", seed=SEED + 6)
+    model32 = Model(cfg32, device="cuda",
+                    params=tree_map(lambda t: t.float(), model.params.tree()))
+    toks = torch.randint(0, cfg.vocab, (REPLAY_BATCH, REPLAY_SEQ),
+                         generator=gen, device="cuda")
+    a16, b16 = _replay(model, toks)
+    a32, b32 = _replay(model32, toks)
+    del model, model32
+    torch.cuda.empty_cache()
+    fp32_replay = _allclose(a32, b32, rtol=REPLAY_TOL, atol=10 * REPLAY_TOL)
+    bf16_replay = _allclose(a16, b16, rtol=REPLAY_TOL, atol=10 * REPLAY_TOL)
+    bf16_from_fp32 = (a16 - b32).abs().max().item()
+    bf16_noise = (b16 - b32).abs().max().item()
+    check(fp32_replay <= 1.0,
+          f"(m) fp32 decode replay vs prefill {fp32_replay:.3f} of the bar")
+    check(torch.isfinite(a16).all().item()
+          and bf16_from_fp32 <= REPLAY_NOISE * bf16_noise,
+          f"(m) bf16 decode {bf16_from_fp32:.3e} from the fp32 prefill, "
+          f"the bf16 prefill {bf16_noise:.3e}")
+    row.update({"fp32_logprob_max_abs_err": lp_err,
+                "fp32_replay_max_abs_err": (a32 - b32).abs().max().item(),
+                "fp32_replay_worst_of_bar": fp32_replay,
+                "bf16_replay_max_abs_err": (a16 - b16).abs().max().item(),
+                "bf16_replay_worst_of_bar": bf16_replay,
+                "bf16_decode_from_fp32_prefill": bf16_from_fp32,
+                "bf16_prefill_from_fp32_prefill": bf16_noise,
+                "seconds": time.perf_counter() - t0})
+    emit(row)
+    return row
+
+
 def _bound(nbytes: float, ops_count: float, card: str) -> tuple:
     """(bound_ms, bound_by): bytes over the memory rate against fp32
     operations over the card's non-tensor-core rate."""
@@ -1346,7 +1530,9 @@ def batch_times(key: str, entry: dict, card: str, gen, ptxas: dict) -> dict:
 _RECUR_ROWS = {"f": (1, False, SEQ, RGLRU_BATCH * RGLRU_WIDTH),
                "g": (1, False, SEQ // SSD_CHUNK,
                      SSD_BATCH * SSD_HEADS * SSD_HEAD_DIM * SSD_STATE),
-               "h": (2, True, SEQ, 65536)}
+               "h": (2, True, SEQ, 65536),
+               "m": (1, False, SERVE_PROMPT // 64,
+                     SERVE_BATCH * SSD_HEADS * SSD_HEAD_DIM * SSD_STATE)}
 
 
 def recurrence_times(key: str, launches: int, card: str, gen) -> dict:
@@ -1369,7 +1555,8 @@ def recurrence_times(key: str, launches: int, card: str, gen) -> dict:
     del got, want, gates, q
     torch.cuda.empty_cache()
     bound_ms, bound_by = bound(spec, n, m, card)
-    entry = recurrence_entry_times(key, card, gen)
+    entry = (recurrence_entry_times(key, card, gen)
+             if key in recurrence_cases(gen) else {})
     return {
         "name": f"recurrence_sweep/{spec.name}/N{n}xM{m}",
         "route": "cuda",
@@ -1386,6 +1573,23 @@ def recurrence_times(key: str, launches: int, card: str, gen) -> dict:
         "case": key, "ms_q1": stats["ms_q1"], "ms_q3": stats["ms_q3"],
         "reps": stats["reps"], **entry,
     }
+
+
+def serve_recurrence_row(served: dict, card: str) -> dict:
+    """The recurrence kernel at (m)'s operand (N 16 chunks, M = B 8 · 24
+    heads · 64 · 128), with the serve run's launches, and its share of a
+    prefill: 24 launches' time over the prefill's CUDA-event time."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    row = recurrence_times("m", served["launches"]["recur1"], card, gen)
+    per_prefill = served["recur1_per_prefill"]
+    row.update({"recur1_per_prefill": per_prefill,
+                "prefill_event_ms": served["prefill_event_ms"],
+                "share_of_prefill": per_prefill * row["ms"]
+                / served["prefill_event_ms"],
+                "trace_recurrence_share": served["trace_recurrence_share"]})
+    emit({"phase": "times", **row})
+    return row
 
 
 def recurrence_entry_times(key: str, card: str, gen) -> dict:
@@ -1795,8 +1999,11 @@ def main() -> int:
         main.update(phase_recurrences())
         main.update(phase_pde())
         kernels = phase_times(main, card, ptxas)
+        peak = torch.cuda.max_memory_allocated()
+        served = phase_serve(card)
+        kernels.append(serve_recurrence_row(served, card))
         emit({"phase": "summary", "seconds": time.perf_counter() - start,
-              "peak_device_bytes": torch.cuda.max_memory_allocated()})
+              "peak_device_bytes": max(peak, served["peak_device_bytes"])})
         print(json.dumps({"kernels": kernels}), flush=True)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)

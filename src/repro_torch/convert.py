@@ -8,8 +8,18 @@ batch-mode dict of diagonals — plus its ``SolveMeta`` fields, and returns
 the port's ``Factorization`` of the same operator.
 ``from_jax_periodic_factor`` turns the fields of a JAX
 ``PeriodicTridiagFactor`` / ``PeriodicPentaFactor`` into the port's core
-factor, the operand of the fused CN steps.  Both read plain numpy and
-mappings only; the caller converts from JAX.
+factor, the operand of the fused CN steps.
+
+For the models, ``params_from_jax`` turns a JAX parameter tree (nested
+dicts of numpy arrays, stacked along ``layers``) into the port's
+parameter tree, checked against ``param_specs``, and ``model_from_jax``
+into a ``Model``; ``cache_from_jax`` does the same for a decode cache,
+``tree_from_jax`` for any nested dict (one layer's parameters).  JAX's
+bfloat16 arrays (numpy's ``bfloat16`` extension type) become
+``torch.bfloat16`` exactly.
+
+Everything here reads plain numpy and mappings only; the caller converts
+from JAX (``jax.tree_util.tree_map(np.asarray, tree)``).
 """
 
 from __future__ import annotations
@@ -22,6 +32,8 @@ import torch
 from .core.penta import PentaFactor, PeriodicPentaFactor
 from .core.tridiag import PeriodicTridiagFactor, TridiagFactor
 from .kernels.ops import canonical_storage_dtype
+from .models.model import Model, cache_specs, param_specs
+from .models.params import check_tree
 from .solver.functional import Factorization, SolveMeta
 from .solver.reference import _expand_if_scalarized
 from .solver.system import resolve_device
@@ -117,3 +129,48 @@ def from_jax_factorization(stored_np, meta_dict: Mapping, *, device,
                      backend=backend, options=tuple(sorted(options.items())))
     return Factorization(diagonals=tuple(tensor(d) for d in diagonals),
                          stored=stored, meta=meta)
+
+
+# ---------------------------------------------------------------------------
+# Model parameters and decode caches
+# ---------------------------------------------------------------------------
+
+def _array_to_tensor(x, device) -> torch.Tensor:
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":   # exact through fp32
+        return torch.from_numpy(x.astype(np.float32)).to(device,
+                                                         torch.bfloat16)
+    return torch.tensor(x, device=device)
+
+
+def tree_from_jax(tree, *, device) -> dict:
+    """A nested mapping of numpy arrays as the same nesting of tensors on
+    ``device``, each at its own dtype."""
+    device = resolve_device(device)
+    if isinstance(tree, Mapping):
+        return {k: tree_from_jax(v, device=device) for k, v in tree.items()}
+    return _array_to_tensor(tree, device)
+
+
+def params_from_jax(cfg, tree, *, device) -> dict:
+    """The port's parameter tree of a JAX ``init_params`` / trained tree,
+    checked against ``param_specs(cfg)`` (keys, shapes, dtypes)."""
+    params = tree_from_jax(tree, device=device)
+    check_tree(param_specs(cfg), params)
+    return params
+
+
+def model_from_jax(cfg, tree, *, device) -> Model:
+    """A ``Model`` of ``cfg`` holding the JAX-made parameters ``tree``."""
+    return Model(cfg, device=device, params=params_from_jax(cfg, tree,
+                                                            device=device))
+
+
+def cache_from_jax(cfg, cache, *, device) -> dict:
+    """The port's decode cache of a JAX one (``prefill`` / ``init_cache``
+    output), checked against ``cache_specs`` at the cache's batch (the ssm
+    cache has no sequence axis)."""
+    out = tree_from_jax(cache, device=device)
+    batch = int(np.asarray(next(iter(cache.values()))).shape[1])
+    check_tree(cache_specs(cfg, batch, 0), out)
+    return out

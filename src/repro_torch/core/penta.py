@@ -104,6 +104,12 @@ def penta_solve_t(f: PentaFactor, g, *, method: str = "scan") -> torch.Tensor:
                               y * inv_alpha, reverse=True, method=method)
 
 
+def penta_factor_solve(a, b, c, d, e, rhs, *,
+                       method: str = "scan") -> torch.Tensor:
+    """Fused factor+solve (cuPentBatch semantics — re-factors every call)."""
+    return penta_solve(penta_factor(a, b, c, d, e), rhs, method=method)
+
+
 # ---------------------------------------------------------------------------
 # Periodic boundaries — rank-4 Woodbury
 # ---------------------------------------------------------------------------

@@ -128,6 +128,12 @@ def thomas_solve_t(f: TridiagFactor, g, *, method: str = "scan") -> torch.Tensor
                              reverse=True, method=method)
 
 
+def thomas_factor_solve(a, b, c, d, *, method: str = "scan") -> torch.Tensor:
+    """Fused factor+solve (cuThomasBatch semantics: the baseline re-factors on
+    every call because its in-place sweeps destroy the LHS copy)."""
+    return thomas_solve(thomas_factor(a, b, c, method=method), d, method=method)
+
+
 # ---------------------------------------------------------------------------
 # Periodic boundaries — Sherman-Morrison, paper §III.C (rank 1)
 # ---------------------------------------------------------------------------

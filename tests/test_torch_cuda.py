@@ -7,8 +7,10 @@ diagonals, factorisation fused into the solve; tested with distinct
 diagonals in every system, on its on-chip route up to
 ``ops.batch_onchip_max_rows`` and its stream route forced, each against
 the plain version in the route's own chunks), ``recurrence_sweep.cu`` (the gated
-recurrences, distinct gates in every column, and their autograd) and
-``fused_cn.cu`` (the two fused CN steps).
+recurrences, distinct gates in every column, and their autograd),
+``fused_cn.cu`` (the two fused CN steps), and the serving path of
+mamba2-130m at its smoke config (the SSD layer on the card against its CPU
+run, one ``recur1`` launch a layer in a prefill).
 
 Every test here is marked ``cuda`` and needs a CUDA device; without one
 they skip.  The file imports torch, numpy and ``repro_torch`` only, so it
@@ -631,3 +633,71 @@ def _to_device(factor, device):
                  else v.to(device))
         for f in dataclasses.fields(factor)
         for v in (getattr(factor, f.name),)})
+
+
+# the serving path of the ssm family (mamba2-130m at its smoke config)
+# ---------------------------------------------------------------------------
+
+def _ssm_smoke(dtype: str):
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(get_smoke_config("mamba2-130m"), dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype,tol", (("float32", 1e-5), ("bfloat16", 3e-2)))
+def test_ssd_layer_on_card_matches_cpu(dtype, tol, cuda_device):
+    """ssm_apply at the smoke config: the card launches the recurrence
+    kernel once, the CPU runs its plain version; out, state and conv tails
+    agree (fp32 within 1e-5 of max|x|, TF32 off; bf16 at the JAX suite's
+    3e-2)."""
+    from repro_torch.models import params, ssm
+    from repro_torch.sharding import ShardingCtx
+    cfg = _ssm_smoke(dtype)
+    p = params.init_params(ssm.ssm_specs(cfg), torch.Generator().manual_seed(1),
+                           device="cpu")
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(2, 3 * cfg.ssm_chunk, cfg.d_model)).astype(np.float32) * 0.3
+    ).to(getattr(torch, dtype))
+    sctx = ShardingCtx.local()
+    want = ssm.ssm_apply(p, x, sctx, cfg)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ops.reset_launches()
+        got = ssm.ssm_apply({k: v.to(cuda_device) for k, v in p.items()},
+                            x.to(cuda_device), sctx, cfg)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    assert ops.LAUNCHES == {"recur1": 1}
+    out, state, tails = got
+    assert _rel(out, want[0]) <= tol and _rel(state, want[1]) <= tol
+    for k in tails:
+        assert _rel(tails[k], want[2][k]) <= tol
+
+
+def test_prefill_launches_the_recurrence_once_a_layer(cuda_device):
+    """One ``recur1`` launch per SSD layer in a prefill (n_layers in all),
+    none in a decode step; the card's fp32 log-probs agree with the CPU's."""
+    from repro_torch.models import Model
+    cfg = _ssm_smoke("float32")
+    cpu = Model(cfg, device="cpu", seed=3)
+    card = Model(cfg, device=cuda_device,
+                 params={k: v for k, v in cpu.params.tree().items()})
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (2, 3 * cfg.ssm_chunk)))
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ops.reset_launches()
+        logits, cache = card.prefill({"tokens": toks.to(cuda_device)})
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES == {"recur1": cfg.n_layers}
+        ops.reset_launches()
+        card.decode(cache, toks[:, 0].to(cuda_device), toks.shape[1])
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES == {}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    want, _ = cpu.prefill({"tokens": toks})
+    got = torch.log_softmax(logits, -1).cpu()
+    assert (got - torch.log_softmax(want, -1)).abs().max().item() <= 1e-3

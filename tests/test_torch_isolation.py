@@ -12,6 +12,9 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch import serve
+from repro_torch.models import Model, build_model
 from repro_torch.solver import BandedSystem
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -25,8 +28,15 @@ for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len(names), ",".join(leaked))
+subpackages = sorted({n.split(".")[1] for n in names if n.count(".") >= 1})
+print(len(names), ",".join(subpackages), ",".join(leaked))
 """
+
+# every subpackage of the port, and its modules: the ten configs, the model
+# layers, the serving driver and the sharding rules among them
+SUBPACKAGES = ["configs", "convert", "core", "kernels", "launch", "models",
+               "pde", "sharding", "solver"]
+MODULES = 47
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
@@ -34,8 +44,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                          capture_output=True, text=True, timeout=300,
                          check=True).stdout.split()
-    count, leaked = int(out[0]), out[1:]
-    assert count >= 17, f"only {count} modules imported"
+    count, subpackages, leaked = int(out[0]), out[1].split(","), out[2:]
+    assert subpackages == SUBPACKAGES
+    assert count == MODULES, f"{count} modules imported, expected {MODULES}"
     assert leaked == [], f"repro_torch pulled in {leaked}"
 
 
@@ -50,3 +61,33 @@ def test_entry_points_default_to_cuda(kind):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ctor(*diags, n=8)
     assert ctor(*diags, n=8, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("entry", ("build_model", "Model", "serve"))
+def test_model_entry_points_default_to_cuda(entry):
+    cfg = get_smoke_config("mamba2-130m")
+    make = {"build_model": lambda **kw: build_model(cfg, **kw),
+            "Model": lambda **kw: Model(cfg, **kw),
+            "serve": lambda **kw: serve.serve(
+                cfg, requests=1, batch=1, prompt_len=16, gen=2,
+                log=lambda _: None, **kw)["cache"]["state"]}[entry]
+
+    def device(obj):
+        return obj.device.type
+
+    if torch.cuda.is_available():
+        assert device(make()) == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert device(make(device="cpu")) == "cpu"
+
+
+def test_serve_main_defaults_to_cuda():
+    argv = ["--arch", "mamba2-130m", "--smoke", "--requests", "1",
+            "--batch", "1", "--prompt-len", "16", "--gen", "2"]
+    if torch.cuda.is_available():
+        assert serve.main(argv) == 0
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve.main(argv)
