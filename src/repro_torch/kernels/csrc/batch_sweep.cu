@@ -85,6 +85,14 @@
 // memory at N = 512); at double 16 chunks (512 threads, 128 registers).  Every row is
 // computed in the sequential arithmetic; only the chunks' carries come
 // from the folds.  ops.batch_sweep_plain(chunks=P) repeats this order.
+//
+// Pentadiagonal systems stream at every N.  Their factor splits into row
+// chunks too: the six Pluecker coordinates of the plane of U rows i-2 and
+// i-1 go to those after row i by a linear map that divides by nothing, so
+// it holds where e_i = 0.  That order has a plain version,
+// ops.batch_sweep_plain(chunks=P) (ops._penta_chunked), but a tile of it
+// (16 systems a block, six words a row and system on chip) ran slower than
+// the stream kernel on an H100 (PERF.md), so no kernel runs it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -36,9 +36,10 @@ The per-system-LHS half (cuThomasBatch / cuPentBatch):
     chunks whose factor is joined by a fold of 2×2 companion products,
     every intermediate kept on the SM), else stream (one thread walks a
     whole system, the factor and intermediate through device memory).
-    The plain version takes the same chunks and repeats that order;
-    ``batch_sweep_cuda`` takes a forced ``route=`` to time one against
-    the other.
+    The plain version takes the same chunks and repeats that order (and,
+    pentadiagonal, any chunks in the six-minor split's order, which no
+    kernel runs yet); ``batch_sweep_cuda`` takes a forced ``route=`` to
+    time one against the other.
 
 The gated recurrences (``h_i = p_i h_{i-1} + q_i`` and order 2):
 
@@ -747,15 +748,21 @@ def batch_route(n: int, dtype, bandwidth: int,
                      f"got {which!r}")
 
 
+def _pow2_scale(big: torch.Tensor) -> torch.Tensor:
+    """The power of two that brings a product whose largest entry is
+    ``big`` into [1/2, 1) where ``big`` leaves [1 / RESCALE_AT,
+    RESCALE_AT], else 1 (zero and non-finite products stay)."""
+    out = (big > RESCALE_AT) | ((big < 1 / RESCALE_AT) & (big > 0))
+    e = torch.where(out, torch.frexp(big).exponent, 0).to(big.dtype)
+    return torch.exp2(-e)
+
+
 def _rescaled(p: list) -> list:
     """The 2×2 products ``p`` = [p00, p01, p10, p11], each column of
     systems whose largest entry leaves [1 / RESCALE_AT, RESCALE_AT] scaled
     by the power of two that brings it into [1/2, 1) (exact; zero and
     non-finite products stay)."""
-    big = torch.stack([q.abs() for q in p]).amax(0)
-    out = (big > RESCALE_AT) | ((big < 1 / RESCALE_AT) & (big > 0))
-    e = torch.where(out, torch.frexp(big).exponent, 0).to(big.dtype)
-    scale = torch.exp2(-e)
+    scale = _pow2_scale(torch.stack([q.abs() for q in p]).amax(0))
     return [q * scale for q in p]
 
 
@@ -832,6 +839,154 @@ def _batch_chunked(diags, rhs: torch.Tensor, chunks: int) -> torch.Tensor:
     return out.reshape(chunks * rows, m)[:n]
 
 
+def _plucker_row(p: list, a, b, c, d, e) -> list:
+    """Row (a, b, c, d, e) over (x_{i-2} … x_{i+2}) applied to the six
+    Plücker coordinates p = [p01, p02, p03, p12, p13, p23] (the 2×2 minors
+    of U rows i − 2 and i − 1 over x_{i-2} … x_{i+1}): those of U rows
+    i − 1 and i, up to a common factor (α_i where p01 = 1).  Linear and
+    free of divisions, so defined where e = 0."""
+    p01, p02, p03, p12, p13, p23 = p
+    return [p01 * c - p02 * b + p12 * a, p01 * d - p03 * b + p13 * a,
+            p01 * e, p02 * d - p03 * c + p23 * a, p02 * e, p03 * e]
+
+
+def _penta_chunked(diags, rhs: torch.Tensor, chunks: int) -> torch.Tensor:
+    """The pentadiagonal six-minor split's order, all chunks at once: a
+    chunked plain version of the penta batch sweep that no kernel runs yet
+    (every penta batch system streams; a split tile of 16 systems a block
+    lost to the stream kernel, PERF.md §6).
+
+    1. Each chunk's 6×6 product of its rows' ``_plucker_row`` maps,
+       rescaled row by row by a power of two (chunk 0 keeps only its
+       product applied to the start state p01 = 1, rescaled on that
+       column alone); a fold from that column through the later chunks'
+       products (the folded vector rescaled alike) gives each chunk's
+       start state, taken in echelon form u = −p12/p01, v = −p13/p01,
+       γ_{s−1} = p02/p01, δ_{s−1} = p03/p01.
+    2. The factor re-run from it: a chunk's first row s in that form
+       (α_s = c − a u − b γ_{s−1}, γ_s = (d − a v − b δ_{s−1}) / α_s),
+       later rows in ``_factor_pass``'s arithmetic, with g from a zero
+       carry and its responses to the unit carries (g′_{s−2}, g_{s−1}),
+       g′_{s−2} = g_{s−2} − γ_{s−2} g_{s−1}; one linear fold over the
+       chunks and a walk from the true carry give g.
+    3. Back substitution alike, from a zero carry (x_e, x_{e+1}) with its
+       responses, one fold and a walk from the true carry.
+    A chunk with no rows passes every carry on unchanged."""
+    cdt = compute_dtype(rhs.dtype)
+    n, m = rhs.shape
+    rows = -(-n // chunks)
+    pad = chunks * rows - n
+    dev = rhs.device
+
+    def tiled(x: torch.Tensor, fill: float) -> torch.Tensor:
+        x = torch.cat([x.to(cdt), torch.full((pad, m), fill, dtype=cdt,
+                                             device=dev)])
+        return x.reshape(chunks, rows, m)
+
+    a, b, c, d, e, r = (tiled(x, f) for x, f in
+                        zip((*diags, rhs), (0.0, 0.0, 1.0, 0.0, 0.0, 0.0)))
+    live = (torch.arange(chunks * rows, device=dev) < n).reshape(
+        chunks, rows, 1)
+    ones = torch.ones((chunks, m), dtype=cdt, device=dev)
+    zeros = torch.zeros_like(ones)
+
+    def keep(t, new: list, old: list) -> list:
+        return [torch.where(live[:, t], x, y) for x, y in zip(new, old)]
+
+    # 1. products: entry [k][j] is Plücker row k of column j, (6, P, M)
+    eye = torch.eye(6, dtype=cdt, device=dev)
+    prod = [eye[k][:, None, None].expand(6, chunks, m) for k in range(6)]
+    counted = torch.ones((6, chunks, 1), dtype=torch.bool, device=dev)
+    counted[1:, 0] = False          # chunk 0: the start column alone
+    for t in range(rows):
+        q = _plucker_row(prod, a[:, t], b[:, t], c[:, t], d[:, t], e[:, t])
+        big = torch.zeros_like(a[:, t])
+        for x in q:
+            big = torch.maximum(big, torch.where(counted, x.abs(), 0).amax(0))
+        scale = _pow2_scale(big)
+        prod = [torch.where(live[:, t], x * scale, y)
+                for x, y in zip(q, prod)]
+    p = [x[0, 0] for x in prod]
+    starts = [[zeros[0]] * 4]
+    for k in range(1, chunks):
+        inv = 1 / p[0]
+        starts.append([-p[3] * inv, -p[4] * inv, p[1] * inv, p[2] * inv])
+        if k < chunks - 1:
+            q = []
+            for i in range(6):
+                acc = prod[i][0, k] * p[0]
+                for j in range(1, 6):
+                    acc = acc + prod[i][j, k] * p[j]
+                q.append(acc)
+            scale = _pow2_scale(torch.stack([x.abs() for x in q]).amax(0))
+            p = [x * scale for x in q]
+    u, v, gam1, dl1 = (torch.stack(x) for x in zip(*starts))
+
+    # 2. the factor from each chunk's start; g from a zero carry and its
+    # responses to the unit carries g'_{s-2} (A) and g_{s-1} (B)
+    gam2 = dl2 = zeros
+    y2, y1, ya2, ya1, yb2, yb1 = zeros, zeros, ones, zeros, zeros, ones
+    beta_all, inv_all, gam_all, dl_all = (torch.empty_like(a)
+                                          for _ in range(4))
+    for t in range(rows):
+        at, bt, ct, dt, et, rt = (x[:, t] for x in (a, b, c, d, e, r))
+        if t == 0:
+            beta = bt
+            inv = 1 / (ct - at * u - bt * gam1)
+            gam = (dt - at * v - bt * dl1) * inv
+        else:
+            beta = bt - at * gam2
+            inv = 1 / (ct - at * dl2 - beta * gam1)
+            gam = (dt - beta * dl1) * inv
+        dl = et * inv
+        y = (rt - at * y2 - beta * y1) * inv
+        ya = (-at * ya2 - beta * ya1) * inv
+        yb = (-at * yb2 - beta * yb1) * inv
+        gam2, gam1, dl2, dl1, y2, y1, ya2, ya1, yb2, yb1 = keep(
+            t, [gam1, gam, dl1, dl, y1, y, ya1, ya, yb1, yb],
+            [gam2, gam1, dl2, dl1, y2, y1, ya2, ya1, yb2, yb1])
+        beta_all[:, t], inv_all[:, t] = beta, inv
+        gam_all[:, t], dl_all[:, t] = gam, dl
+    summ = [y2 - gam2 * y1, y1, ya2 - gam2 * ya1, ya1, yb2 - gam2 * yb1,
+            yb1]
+    carry, carries = [zeros[0], zeros[0]], []
+    for k in range(chunks):
+        carries.append(carry)
+        z0, z1, ra0, ra1, rb0, rb1 = (x[k] for x in summ)
+        carry = [z0 + ra0 * carry[0] + rb0 * carry[1],
+                 z1 + ra1 * carry[0] + rb1 * carry[1]]
+    g2, g1 = (torch.stack(x) for x in zip(*carries))
+    g_all = torch.empty_like(a)
+    for t in range(rows):
+        g = (r[:, t] - a[:, t] * g2 - beta_all[:, t] * g1) * inv_all[:, t]
+        g2, g1 = keep(t, [g1, g], [g2, g1])
+        g_all[:, t] = g
+
+    # 3. back substitution: from a zero carry (x_e, x_{e+1}) with its
+    # responses, the fold, and from the true carry into x
+    x1, x2, xa1, xa2, xb1, xb2 = zeros, zeros, ones, zeros, zeros, ones
+    for t in range(rows - 1, -1, -1):
+        gt, dt = gam_all[:, t], dl_all[:, t]
+        x1, x2, xa1, xa2, xb1, xb2 = keep(
+            t, [g_all[:, t] - gt * x1 - dt * x2, x1,
+                -gt * xa1 - dt * xa2, xa1, -gt * xb1 - dt * xb2, xb1],
+            [x1, x2, xa1, xa2, xb1, xb2])
+    summ = [x1, x2, xa1, xa2, xb1, xb2]
+    carry, carries = [zeros[0], zeros[0]], [None] * chunks
+    for k in range(chunks - 1, -1, -1):
+        carries[k] = carry
+        z0, z1, ra0, ra1, rb0, rb1 = (x[k] for x in summ)
+        carry = [z0 + ra0 * carry[0] + rb0 * carry[1],
+                 z1 + ra1 * carry[0] + rb1 * carry[1]]
+    x1, x2 = (torch.stack(x) for x in zip(*carries))
+    out = torch.empty_like(a)
+    for t in range(rows - 1, -1, -1):
+        x = g_all[:, t] - gam_all[:, t] * x1 - dl_all[:, t] * x2
+        x1, x2 = keep(t, [x, x1], [x1, x2])
+        out[:, t] = x
+    return out.reshape(chunks * rows, m)[:n]
+
+
 def batch_sweep_plain(spec: SweepSpec, diags, rhs: torch.Tensor, *,
                       chunks: int | None = None) -> torch.Tensor:
     """The batch kernel's function in plain torch, in the order of the
@@ -840,20 +995,22 @@ def batch_sweep_plain(spec: SweepSpec, diags, rhs: torch.Tensor, *,
     factorisation fused into the forward substitution in ``_factor_pass``'s
     arithmetic order (``repro.kernels.engine``), the per-system
     coefficients kept in a workspace, then the descending ``_BATCH_BWD``
-    pass.  More chunks (tridiagonal only) run ``_batch_chunked``, the
-    on-chip route's order.  ``diags`` are the ``bandwidth`` (N, M)
-    diagonals, sub-most first.  bf16 operands compute (and return) fp32,
-    as the kernel does."""
+    pass.  More chunks run a chunked order: the tridiagonal on-chip
+    route's (``_batch_chunked``) or, pentadiagonal, the six-minor split's
+    (``_penta_chunked``), which no kernel runs yet.  ``diags`` are the
+    ``bandwidth`` (N, M) diagonals, sub-most first.  bf16 operands compute
+    (and return) fp32, as the kernel does."""
     cdt = compute_dtype(rhs.dtype)
     n, m = rhs.shape
     if chunks is None:
         chunks = batch_route(n, rhs.dtype, spec.bandwidth).chunks
     if chunks != 1:
-        if spec.order != 1 or not 1 <= chunks <= max(n, 1):
+        if not 1 <= chunks <= max(n, 1):
             raise ValueError(f"batch_sweep: {chunks} row chunks do not "
-                             f"split {spec.name} over N = {n} (tridiagonal "
-                             "only, at most N chunks)")
-        return _batch_chunked(diags, rhs, chunks)
+                             f"split {spec.name} over N = {n} (at most N "
+                             "chunks)")
+        return (_batch_chunked if spec.order == 1 else _penta_chunked)(
+            diags, rhs, chunks)
     out = torch.empty((n, m), dtype=cdt, device=rhs.device)
     coefs = torch.empty((spec.n_coefs, n, m), dtype=cdt, device=rhs.device)
     zeros = torch.zeros((m,), dtype=cdt, device=rhs.device)

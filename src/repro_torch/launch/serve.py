@@ -12,7 +12,10 @@ lines), plus ``--device`` (default ``cuda``; raises without a card unless
 
 The prefill cache is grown to the serving budget (``--max-len``) only
 along the axes its spec names a sequence axis (``act_kv_seq``); the ssm
-state and conv tails have none, whatever their sizes.
+state and conv tails have none, whatever their sizes.  A local-attention
+cache (``cfg.window`` > 0) is a ring: it grows only to
+``min(window, max_len)``, and one that already holds ``window`` slots
+stays as it is.
 """
 
 from __future__ import annotations
@@ -30,16 +33,25 @@ from repro_torch.models import build_model
 SEQ_AXIS = "act_kv_seq"
 
 
-def pad_cache(cache: dict, specs: dict, max_len: int) -> dict:
-    """Grow every cache leaf whose spec names a sequence axis to
-    ``max_len`` along it (zeros after the prompt)."""
+def pad_cache(cache: dict, specs: dict, max_len: int,
+              window: int = 0) -> dict:
+    """Grow every cache leaf whose spec names a sequence axis along it
+    (zeros after the prompt): to ``max_len``, or, with a local-attention
+    ``window`` (> 0), whose cache is a ring of ``min(window, prompt)``
+    slots, to ``min(window, max_len)``.  A leaf already that long (a ring
+    that holds ``window`` slots, and may have wrapped) stays as it is:
+    nothing is shrunk."""
+    size = min(window, max_len) if window > 0 else max_len
+
     def grow(leaf, spec):
         if SEQ_AXIS not in spec.names:
             return leaf
         axis = spec.names.index(SEQ_AXIS)
-        pad = [0, 0] * (leaf.ndim - 1 - axis) + [0, max_len - leaf.shape[axis]]
+        if leaf.shape[axis] >= size:
+            return leaf
+        pad = [0, 0] * (leaf.ndim - 1 - axis) + [0, size - leaf.shape[axis]]
         return F.pad(leaf, pad)
-    return {k: (pad_cache(v, specs[k], max_len) if isinstance(v, dict)
+    return {k: (pad_cache(v, specs[k], max_len, window) if isinstance(v, dict)
                 else grow(v, specs[k])) for k, v in cache.items()}
 
 
@@ -75,7 +87,7 @@ def serve(cfg, *, requests: int = 12, batch: int = 4, prompt_len: int = 32,
         _sync(device)
         t_pre = time.perf_counter()
         logits, cache = model.prefill({"tokens": prompts})
-        cache = pad_cache(cache, specs, max_len)
+        cache = pad_cache(cache, specs, max_len, cfg.window)
         tok = torch.argmax(logits, -1)
         _sync(device)
         t_dec = time.perf_counter()

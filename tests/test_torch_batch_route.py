@@ -296,7 +296,8 @@ def test_batch_route_refusals(dtype):
 def test_plain_refuses_chunks_it_cannot_take():
     penta = tengine.REGISTRY["penta_batch"]
     diags = [torch.ones(6, 2) for _ in range(5)]
-    with pytest.raises(ValueError, match="tridiagonal only"):
-        tops.batch_sweep_plain(penta, diags, torch.ones(6, 2), chunks=2)
-    with pytest.raises(ValueError, match="at most N"):
-        tops.batch_sweep_plain(SPEC, diags[:3], torch.ones(6, 2), chunks=7)
+    for spec, bw in ((penta, 5), (SPEC, 3)):
+        for chunks in (0, 7):
+            with pytest.raises(ValueError, match="at most N"):
+                tops.batch_sweep_plain(spec, diags[:bw], torch.ones(6, 2),
+                                       chunks=chunks)

@@ -420,3 +420,38 @@ def test_pad_cache_grows_only_sequence_axes():
     assert torch.equal(grown["k"][:, :, :, :5], cache["k"])
     assert not grown["k"][:, :, :, 5:].any()
     assert grown["state"] is cache["state"]
+
+
+_RING_SPEC = {"k": params.ParamSpec((2, 3, 1, 8, 4), (
+    "layers", "act_batch", "act_kv", "act_kv_seq", "act_head_dim")),
+    "state": params.ParamSpec((2, 3, 5, 5), ("layers", "act_batch", None,
+                                             None))}
+
+
+@pytest.mark.parametrize("prompt,grown", ((5, 8), (8, 8), (11, 8)))
+def test_pad_cache_grows_a_ring_window_cache_only_to_the_window(prompt,
+                                                                grown):
+    """window 8, max_len 20: the prefill's ring holds min(window, prompt)
+    slots; a prompt shorter than the window grows to the window (zeros
+    after it), one equal to or longer than it (a full, possibly wrapped
+    ring) stays as it is, never grown to max_len."""
+    slots = min(8, prompt)
+    cache = {"k": torch.arange(2 * 3 * slots * 4, dtype=torch.float32
+                               ).reshape(2, 3, 1, slots, 4),
+             "state": torch.ones(2, 3, 5, 5)}
+    out = tserve.pad_cache(cache, _RING_SPEC, 20, window=8)
+    assert out["k"].shape == (2, 3, 1, grown, 4)
+    assert torch.equal(out["k"][:, :, :, :slots], cache["k"])
+    assert not out["k"][:, :, :, slots:].any()
+    if slots == 8:
+        assert out["k"] is cache["k"]
+    assert out["state"] is cache["state"]
+
+
+def test_pad_cache_ring_window_past_max_len_grows_to_max_len():
+    """window 32 past max_len 12: the ring never needs more than max_len
+    slots; without a window the same cache grows to max_len too."""
+    cache = {"k": torch.ones(2, 3, 1, 5, 4), "state": torch.ones(2, 3, 5, 5)}
+    for window in (32, 0):
+        out = tserve.pad_cache(cache, _RING_SPEC, 12, window=window)
+        assert out["k"].shape == (2, 3, 1, 12, 4)
