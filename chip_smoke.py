@@ -82,7 +82,20 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
      (fp32 within the JAX suite's 3e-2 bar, bf16 within three times what
      bf16 rounding alone moves the prefill from its fp32 run).  The
      recurrence kernel's row at (m)'s operand gives its share of a prefill;
-  8. one summary line (the run's seconds and peak device memory) and one
+  8. (n) serving recurrentgemma-9b (the hybrid family) at its published
+     config (38 layers, 12 × (rec, rec, attn) + 2 rec, d_model 4096, vocab
+     256000, window 2048, rnn_width 4096, bf16, random weights from the
+     seed) through ``serve``: 16 requests in waves of 8, prompt 1984 tokens,
+     128 generated, so the ring of 2048 slots wraps while decoding; counts
+     read around it (26 ``recur1`` a prefill, one per RG-LRU layer, none in
+     decode), the ring caches' shape and the RG-LRU state checked, the
+     serving numbers and one traced, event-timed prefill as in (m); at full
+     width and 5 layers the fp32 prefill on the card against the CPU's
+     (log-probs within 1e-3), and teacher-forced decode from a 2016-token
+     prefill to 2080, across the wrap, against the prefill of each checked
+     prefix with (m)'s bars.  The recurrence kernel's row at (n)'s operand
+     (S 1984 × B 8 · 4096) gives its share of a prefill;
+  9. one summary line (the run's seconds and peak device memory) and one
      ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -1009,19 +1022,23 @@ PARITY_BATCH, PARITY_SEQ, PARITY_TOL = 1, 256, 1e-3
 REPLAY_BATCH, REPLAY_SEQ, REPLAY_TOL, REPLAY_NOISE = 2, 64, 3e-2, 3.0
 
 
+def _device_kernels(prof) -> dict:
+    """Device ms by kernel name of a profiler trace."""
+    from torch.autograd import DeviceType
+    return {e.key: getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
 def _device_kernel_ms(prof) -> tuple:
     """(all kernels, recurrence kernels) device ms of a profiler trace."""
-    from torch.autograd import DeviceType
-    total = recur = 0.0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        total += us
-        if "recurrence" in e.key:
-            recur += us
-    return total / 1e3, recur / 1e3
+    kernels = _device_kernels(prof)
+    return (sum(kernels.values()),
+            sum(ms for name, ms in kernels.items() if "recurrence" in name))
+
+
+def _normed(logits):
+    return logits - logits.max(-1, keepdim=True).values
 
 
 def _replay(model, tokens) -> tuple:
@@ -1031,8 +1048,7 @@ def _replay(model, tokens) -> tuple:
     cache = model.init_cache(*tokens.shape)
     for t in range(tokens.shape[1]):
         step, cache = model.decode(cache, tokens[:, t], t)
-    return (step - step.max(-1, keepdim=True).values,
-            pre - pre.max(-1, keepdim=True).values)
+    return _normed(step), _normed(pre)
 
 
 def phase_serve(card: str) -> dict:
@@ -1162,6 +1178,200 @@ def phase_serve(card: str) -> dict:
                 "bf16_replay_worst_of_bar": bf16_replay,
                 "bf16_decode_from_fp32_prefill": bf16_from_fp32,
                 "bf16_prefill_from_fp32_prefill": bf16_noise,
+                "seconds": time.perf_counter() - t0})
+    emit(row)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# case (n): serving recurrentgemma-9b (the hybrid family) at its published
+# config
+# ---------------------------------------------------------------------------
+
+# src/repro_torch/configs/recurrentgemma_9b.py (as src/repro/configs/): 38
+# layers, 12 x (rec, rec, attn) + 2 rec, d_model 4096, 16 heads (MQA, kv 1,
+# head_dim 256), d_ff 12288, vocab 256000, window 2048, rnn_width 4096, bf16.
+# A prompt of 1984 tokens under the window: the prefill's ring of 1984 slots
+# grows to 2048 and wraps at token 2048 while the wave decodes to 2111.
+HYBRID_ARCH = "recurrentgemma-9b"
+HYBRID_PROMPT, HYBRID_GEN = 1984, 128
+# the card-vs-CPU and replay checks at full width, depth cut to one group
+# plus the tail (the smoke config's layout): prefill 2016 tokens, grow the
+# ring, decode teacher-forced to 2080, each checked step against the
+# prefill of the same prefix (before the wrap, at it, after it, the last)
+HYBRID_LAYERS, HYBRID_PARITY_SEQ = 5, 128
+HYBRID_REPLAY_PROMPT, HYBRID_REPLAY_CHECKS = 2016, (2040, 2049, 2064, 2080)
+
+
+def _replay_across_wrap(model, tokens) -> dict:
+    """{prefix length: (normalised log-probs of teacher-forced decode, of
+    the prefill of the same prefix)}: prefill ``HYBRID_REPLAY_PROMPT``
+    tokens, grow the ring with ``pad_cache`` to the serving budget, then
+    decode the rest of ``tokens``."""
+    from repro_torch.launch.serve import pad_cache
+
+    B, T = tokens.shape
+    _, cache = model.prefill({"tokens": tokens[:, :HYBRID_REPLAY_PROMPT]})
+    cache = pad_cache(cache, model.cache_specs(B, T), T, model.cfg.window)
+    out = {}
+    for t in range(HYBRID_REPLAY_PROMPT, T):
+        step, cache = model.decode(cache, tokens[:, t], t)
+        if t + 1 in HYBRID_REPLAY_CHECKS:
+            pre, _ = model.prefill({"tokens": tokens[:, :t + 1]})
+            out[t + 1] = (_normed(step), _normed(pre))
+    return out
+
+
+def phase_serve_hybrid(card: str) -> dict:
+    """(n): ``repro_torch.launch.serve.serve`` at recurrentgemma-9b's
+    published config, random weights from the seed, with the counts set to
+    0 just before it and read just after: one ``recur1`` launch per RG-LRU
+    layer a prefill (26) and none in decode.  Then one prefill (B 8, S 1984)
+    timed with CUDA events and traced; at full width and 5 layers, the fp32
+    prefill on the card against the CPU's plain run on the same weights
+    (log-probs within 1e-3) and teacher-forced decode across the ring's
+    wrap against the prefill of each checked prefix (fp32 within the JAX
+    suite's 3e-2 bar, bf16 within REPLAY_NOISE times the bf16 prefill's own
+    distance from the fp32 prefill).  One full-size model is held at a
+    time."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import Model, build_model
+    from repro_torch.models.params import tree_map
+
+    cfg = get_config(HYBRID_ARCH)
+    check((cfg.n_layers, cfg.block_pattern, cfg.d_model, cfg.n_heads,
+           cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.vocab, cfg.window,
+           cfg.rnn_dim, cfg.dtype)
+          == (38, ("rec", "rec", "attn"), 4096, 16, 1, 256, 12288, 256000,
+              2048, 4096, "bfloat16"),
+          f"(n) {HYBRID_ARCH} is not at its published config: {cfg}")
+    groups, tail = divmod(cfg.n_layers, len(cfg.block_pattern))
+    n_rec = groups * cfg.block_pattern.count("rec") + tail
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out = serve(cfg, requests=SERVE_REQUESTS, batch=SERVE_BATCH,
+                prompt_len=HYBRID_PROMPT, gen=HYBRID_GEN, device="cuda",
+                seed=SEED, log=lambda line: print(line, flush=True))
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    waves = out["waves"]
+    check(launches == {"recur1": len(waves) * n_rec},
+          f"(n) launches {launches}, expected {n_rec} recur1 a prefill over "
+          f"{len(waves)} waves")
+    cache = out["cache"]
+    ring = (groups, SERVE_BATCH, cfg.n_kv_heads, cfg.window, cfg.hd)
+    rings = [cache["groups"][k][kv] for k in cache["groups"] if "attn" in k
+             for kv in ("k", "v")]
+    states = [v["h"] for v in cache["groups"].values() if "h" in v]
+    states.append(cache["tail"]["h"])
+    check(out["served"] == SERVE_REQUESTS
+          and all(tuple(r.shape) == ring for r in rings)
+          and all(torch.isfinite(h).all().item() for h in states),
+          f"(n) the ring caches are not {ring} or an RG-LRU state is not "
+          "finite")
+    del out, cache, rings, states
+    row = {"phase": "serve", "case": "n", "arch": HYBRID_ARCH,
+           "requests": SERVE_REQUESTS, "batch": SERVE_BATCH,
+           "prompt": HYBRID_PROMPT, "gen": HYBRID_GEN, "ring": list(ring),
+           "launches": launches, "recur1_per_prefill": n_rec,
+           "prefill_ms": [w["prefill_s"] * 1e3 for w in waves],
+           "decode_ms_per_token": [w["decode_s"] * 1e3 / w["decode_steps"]
+                                   for w in waves],
+           "tokens_per_s": SERVE_REQUESTS * HYBRID_GEN
+           / sum(w["prefill_s"] + w["decode_s"] for w in waves),
+           "serve_seconds": time.perf_counter() - t0,
+           "peak_device_bytes": peak}
+
+    # one prefill of a wave's shape: CUDA events, then a profiler trace
+    torch.cuda.empty_cache()
+    model = build_model(cfg, device="cuda", seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    tokens = torch.randint(0, cfg.vocab, (SERVE_BATCH, HYBRID_PROMPT),
+                           generator=gen, device="cuda")
+    times = event_times(lambda: model.prefill({"tokens": tokens}), reps=5,
+                        warmup=1)
+    q1, _, q3 = statistics.quantiles(times, n=4)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+    kernels_ms, recur_ms = _device_kernel_ms(prof)
+    top = sorted(_device_kernels(prof).items(), key=lambda kv: -kv[1])[:8]
+    row.update({"prefill_event_ms": statistics.median(times),
+                "trace_top_kernels_ms": [[name[:80], ms] for name, ms in top],
+                "prefill_event_ms_q1": q1, "prefill_event_ms_q3": q3,
+                "prefill_event_reps": len(times),
+                "trace_kernels_ms": kernels_ms,
+                "trace_recurrence_ms": recur_ms,
+                "trace_recurrence_share": (recur_ms / kernels_ms
+                                           if kernels_ms else None)})
+    del model, tokens, prof
+    torch.cuda.empty_cache()
+
+    # full width, 5 layers: the bf16 model and its fp32 twin on the card,
+    # the twin's weights also on the CPU
+    cut = dataclasses.replace(cfg, n_layers=HYBRID_LAYERS)
+    cut32 = dataclasses.replace(cut, dtype="float32")
+    model = build_model(cut, device="cuda", seed=SEED + 6)
+    model32 = Model(cut32, device="cuda",
+                    params=tree_map(lambda t: t.float(), model.params.tree()))
+    cpu = Model(cut32, device="cpu",
+                params=tree_map(lambda t: t.cpu(), model32.params.tree()))
+    toks = torch.randint(0, cfg.vocab, (PARITY_BATCH, HYBRID_PARITY_SEQ),
+                         generator=torch.Generator().manual_seed(SEED + 5))
+    ops.reset_launches()
+    got, _ = model32.prefill({"tokens": toks.cuda()})
+    torch.cuda.synchronize()
+    groups, tail = divmod(HYBRID_LAYERS, len(cut.block_pattern))
+    check(ops.LAUNCHES == {"recur1": groups * cut.block_pattern.count("rec")
+                           + tail},
+          f"(n) fp32 prefill launches {ops.LAUNCHES}")
+    want, _ = cpu.prefill({"tokens": toks})
+    del cpu
+    lp_err = (torch.log_softmax(got, -1).cpu()
+              - torch.log_softmax(want, -1)).abs().max().item()
+    check(lp_err <= PARITY_TOL,
+          f"(n) fp32 prefill log-probs, card vs CPU, max|Δ| {lp_err:.3e}")
+
+    # teacher-forced decode across the ring's wrap against prefill
+    toks = torch.randint(0, cfg.vocab, (REPLAY_BATCH, HYBRID_REPLAY_CHECKS[-1]),
+                         generator=gen, device="cuda")
+    r16 = _replay_across_wrap(model, toks)
+    r32 = _replay_across_wrap(model32, toks)
+    del model, model32
+    torch.cuda.empty_cache()
+    steps = []
+    for n in HYBRID_REPLAY_CHECKS:
+        (a16, b16), (a32, b32) = r16[n], r32[n]
+        step = {"prefix": n,
+                "fp32_replay_max_abs_err": (a32 - b32).abs().max().item(),
+                "fp32_replay_worst_of_bar": _allclose(
+                    a32, b32, rtol=REPLAY_TOL, atol=10 * REPLAY_TOL),
+                "bf16_replay_max_abs_err": (a16 - b16).abs().max().item(),
+                "bf16_decode_from_fp32_prefill": (a16 - b32).abs().max()
+                .item(),
+                "bf16_prefill_from_fp32_prefill": (b16 - b32).abs().max()
+                .item()}
+        check(step["fp32_replay_worst_of_bar"] <= 1.0,
+              f"(n) fp32 decode replay vs prefill at {n} tokens: "
+              f"{step['fp32_replay_worst_of_bar']:.3f} of the bar")
+        check(torch.isfinite(a16).all().item()
+              and step["bf16_decode_from_fp32_prefill"]
+              <= REPLAY_NOISE * step["bf16_prefill_from_fp32_prefill"],
+              f"(n) bf16 decode at {n} tokens "
+              f"{step['bf16_decode_from_fp32_prefill']:.3e} from the fp32 "
+              f"prefill, the bf16 prefill "
+              f"{step['bf16_prefill_from_fp32_prefill']:.3e}")
+        steps.append(step)
+    row.update({"fp32_logprob_max_abs_err": lp_err, "replay": steps,
                 "seconds": time.perf_counter() - t0})
     emit(row)
     return row
@@ -1532,7 +1742,8 @@ _RECUR_ROWS = {"f": (1, False, SEQ, RGLRU_BATCH * RGLRU_WIDTH),
                      SSD_BATCH * SSD_HEADS * SSD_HEAD_DIM * SSD_STATE),
                "h": (2, True, SEQ, 65536),
                "m": (1, False, SERVE_PROMPT // 64,
-                     SERVE_BATCH * SSD_HEADS * SSD_HEAD_DIM * SSD_STATE)}
+                     SERVE_BATCH * SSD_HEADS * SSD_HEAD_DIM * SSD_STATE),
+               "n": (1, False, HYBRID_PROMPT, SERVE_BATCH * RGLRU_WIDTH)}
 
 
 def recurrence_times(key: str, launches: int, card: str, gen) -> dict:
@@ -1576,12 +1787,14 @@ def recurrence_times(key: str, launches: int, card: str, gen) -> dict:
 
 
 def serve_recurrence_row(served: dict, card: str) -> dict:
-    """The recurrence kernel at (m)'s operand (N 16 chunks, M = B 8 · 24
-    heads · 64 · 128), with the serve run's launches, and its share of a
-    prefill: 24 launches' time over the prefill's CUDA-event time."""
+    """The recurrence kernel at a serving case's operand ((m): N 16 chunks,
+    M = B 8 · 24 heads · 64 · 128; (n): N = S 1984, M = B 8 · rnn_width
+    4096), with the serve run's launches, and its share of a prefill: a
+    prefill's launches' time over the prefill's CUDA-event time."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
-    row = recurrence_times("m", served["launches"]["recur1"], card, gen)
+    row = recurrence_times(served["case"], served["launches"]["recur1"], card,
+                           gen)
     per_prefill = served["recur1_per_prefill"]
     row.update({"recur1_per_prefill": per_prefill,
                 "prefill_event_ms": served["prefill_event_ms"],
@@ -2000,10 +2213,13 @@ def main() -> int:
         main.update(phase_pde())
         kernels = phase_times(main, card, ptxas)
         peak = torch.cuda.max_memory_allocated()
-        served = phase_serve(card)
-        kernels.append(serve_recurrence_row(served, card))
+        peaks = [peak]
+        for phase in (phase_serve, phase_serve_hybrid):
+            served = phase(card)
+            kernels.append(serve_recurrence_row(served, card))
+            peaks.append(served["peak_device_bytes"])
         emit({"phase": "summary", "seconds": time.perf_counter() - start,
-              "peak_device_bytes": max(peak, served["peak_device_bytes"])})
+              "peak_device_bytes": max(peaks)})
         print(json.dumps({"kernels": kernels}), flush=True)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)

@@ -32,8 +32,8 @@ import torch
 from .core.penta import PentaFactor, PeriodicPentaFactor
 from .core.tridiag import PeriodicTridiagFactor, TridiagFactor
 from .kernels.ops import canonical_storage_dtype
-from .models.model import Model, cache_specs, param_specs
-from .models.params import check_tree
+from .models.model import SEQ_AXIS, Model, cache_specs, param_specs
+from .models.params import check_tree, tree_leaves
 from .solver.functional import Factorization, SolveMeta
 from .solver.reference import _expand_if_scalarized
 from .solver.system import resolve_device
@@ -168,9 +168,15 @@ def model_from_jax(cfg, tree, *, device) -> Model:
 
 def cache_from_jax(cfg, cache, *, device) -> dict:
     """The port's decode cache of a JAX one (``prefill`` / ``init_cache``
-    output), checked against ``cache_specs`` at the cache's batch (the ssm
-    cache has no sequence axis)."""
+    output, nested for the hybrid family), checked against ``cache_specs``
+    at the cache's batch (axis 1 of every leaf) and sequence length (the
+    ``act_kv_seq`` axis of a leaf that has one: the hybrid family's ring;
+    the ssm cache has none)."""
     out = tree_from_jax(cache, device=device)
-    batch = int(np.asarray(next(iter(cache.values()))).shape[1])
-    check_tree(cache_specs(cfg, batch, 0), out)
+    leaves = tree_leaves(out)
+    batch = leaves[0].shape[1]
+    seq = next((leaf.shape[spec.names.index(SEQ_AXIS)] for spec, leaf in
+                zip(tree_leaves(cache_specs(cfg, batch, 0)), leaves)
+                if SEQ_AXIS in spec.names), 0)
+    check_tree(cache_specs(cfg, batch, seq), out)
     return out

@@ -29,8 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import build_model
-
-SEQ_AXIS = "act_kv_seq"
+from repro_torch.models.model import SEQ_AXIS
 
 
 def pad_cache(cache: dict, specs: dict, max_len: int,

@@ -1,7 +1,8 @@
 """Sequence models on the port's kernels (counterpart of ``repro.models``).
 
-Ported so far: the serving path of the ssm family (mamba2-130m), and the
-RG-LRU layer of the hybrid family (``rglru``)."""
+Ported so far: the serving paths of the ssm family (mamba2-130m) and the
+hybrid family (recurrentgemma-9b: ``rglru``, and the attention layers and
+block of ``layers`` and ``transformer``)."""
 
 from .config import ArchConfig, reduced
 from .model import Model, build_model

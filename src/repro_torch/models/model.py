@@ -1,17 +1,20 @@
-"""Model assembly: the serving path of the ssm family (mamba2-130m).
+"""Model assembly: the serving path of the ssm and hybrid families.
 
 Counterpart of ``repro.models.model`` for the families ported so far:
 
-  ssm    — Mamba-2 SSD stack, attention-free (mamba2-130m).
+  ssm    — Mamba-2 SSD stack, attention-free (mamba2-130m);
+  hybrid — RecurrentGemma: the (RG-LRU, RG-LRU, local-attn) pattern plus a
+           tail of RG-LRU layers, the attention KV cache a ring of
+           ``min(window, seq)`` slots (recurrentgemma-9b).
 
 ``param_specs``, ``cache_specs``, ``init_cache``, ``prefill_fn`` and
 ``decode_fn`` are plain functions on nested dicts of tensors, under the JAX
 names.  The layer stack is a loop over parameters stacked along a leading
 ``layers`` axis (JAX's ``lax.scan``).  ``Model`` is the ``nn.Module`` that
 holds the parameters on one device and serves ``prefill`` / ``decode``;
-``build_model`` makes one.  The other families (dense, moe, hybrid,
-encdec, vlm) raise ``NotImplementedError`` naming the ROADMAP item that
-brings them; training (``loss_fn``) comes with the training slice.
+``build_model`` makes one.  The other families (dense, moe, encdec, vlm)
+raise ``NotImplementedError`` naming the ROADMAP item that brings them;
+training (``loss_fn``) comes with the training slice.
 """
 
 from __future__ import annotations
@@ -25,27 +28,27 @@ from torch import nn
 from repro_torch.sharding import ShardingCtx
 from repro_torch.solver.system import resolve_device
 from .config import ArchConfig
-from .layers import rmsnorm
+from .layers import _dt, mlp_apply, mlp_apply_1tok, mlp_specs, rmsnorm
 from .params import ParamSpec, check_tree, init_params, tree_map
-from .ssm import _dt, ssm_apply, ssm_decode_step, ssm_specs
+from .rglru import rglru_apply, rglru_decode_step, rglru_specs
+from .ssm import ssm_apply, ssm_decode_step, ssm_specs
+from .transformer import block_apply, block_decode, block_prefill_kv, block_specs
 
 # where each unported family comes from (ROADMAP.md, Queue 1)
-_UNPORTED = {
-    "hybrid": "Queue 1 item 1 (attention, RoPE, ring-window KV cache, MLP "
-              "and the transformer block)",
-    "dense": "Queue 1 item 2 (the rest of the model families)",
-    "moe": "Queue 1 item 2 (the rest of the model families)",
-    "encdec": "Queue 1 item 2 (the rest of the model families)",
-    "vlm": "Queue 1 item 2 (the rest of the model families)",
-}
+_UNPORTED = dict.fromkeys(("dense", "moe", "encdec", "vlm"),
+                          "Queue 1 item 4 (the rest of the model families)")
+_PORTED = ("ssm", "hybrid")
+# the logical name of a cache's sequence axis: the one a serving driver grows
+SEQ_AXIS = "act_kv_seq"
 
 
-def _unported(family: str) -> Exception:
-    if family in _UNPORTED:
-        return NotImplementedError(
-            f"family {family!r} is not ported yet: ROADMAP.md "
-            f"{_UNPORTED[family]}")
-    return ValueError(family)
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.family in _UNPORTED:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet: ROADMAP.md "
+            f"{_UNPORTED[cfg.family]}")
+    if cfg.family not in _PORTED:
+        raise ValueError(cfg.family)
 
 
 def stack_specs(tree, n: int):
@@ -68,6 +71,16 @@ def _embed_specs(cfg: ArchConfig) -> dict:
     }
 
 
+def _rec_layer_specs(cfg: ArchConfig) -> dict:
+    D = cfg.d_model
+    return {
+        "ln1": ParamSpec((D,), (None,), torch.float32, init="zeros"),
+        "temporal": rglru_specs(cfg),
+        "ln2": ParamSpec((D,), (None,), torch.float32, init="zeros"),
+        "mlp": mlp_specs(cfg),
+    }
+
+
 def _ssm_layer_specs(cfg: ArchConfig) -> dict:
     D = cfg.d_model
     return {
@@ -76,21 +89,59 @@ def _ssm_layer_specs(cfg: ArchConfig) -> dict:
     }
 
 
+def _hybrid_layout(cfg: ArchConfig) -> tuple:
+    """(groups, tail layers, [(key, kind)] of a group): ``n_layers`` cut
+    into groups of ``block_pattern``, the remainder RG-LRU layers."""
+    pat = cfg.block_pattern
+    groups, rem = divmod(cfg.n_layers, len(pat))
+    return groups, rem, [(f"l{i}_{kind}", kind) for i, kind in enumerate(pat)]
+
+
 def param_specs(cfg: ArchConfig) -> dict:
-    if cfg.family != "ssm":
-        raise _unported(cfg.family)
+    _check_family(cfg)
     specs = _embed_specs(cfg)
-    specs["blocks"] = stack_specs(_ssm_layer_specs(cfg), cfg.n_layers)
+    if cfg.family == "ssm":
+        specs["blocks"] = stack_specs(_ssm_layer_specs(cfg), cfg.n_layers)
+        return specs
+    G, rem, keys = _hybrid_layout(cfg)
+    specs["groups"] = stack_specs(
+        {key: _rec_layer_specs(cfg) if kind == "rec" else block_specs(cfg)
+         for key, kind in keys}, G)
+    if rem:
+        specs["tail"] = stack_specs(_rec_layer_specs(cfg), rem)
     return specs
 
 
 def cache_specs(cfg: ArchConfig, batch: int, seq: int) -> dict:
     """Decode-time state.  ``seq`` sizes the sequence axes (named
-    ``act_kv_seq``) of the families that have one; the ssm state has none."""
-    if cfg.family != "ssm":
-        raise _unported(cfg.family)
+    ``act_kv_seq``): the hybrid family's ring of ``min(window, seq)`` K/V
+    slots; the ssm state and the RG-LRU state have none."""
+    _check_family(cfg)
+    dt = _dt(cfg)
+    if cfg.family == "hybrid":
+        G, rem, keys = _hybrid_layout(cfg)
+        R, W = cfg.rnn_dim, cfg.conv_width
+        ring = ParamSpec((G, batch, cfg.n_kv_heads, min(cfg.window, seq),
+                          cfg.hd), ("layers", "act_batch", "act_kv",
+                                    SEQ_AXIS, "act_head_dim"), dt,
+                         init="zeros")
+
+        def rec_state(n):
+            return {
+                "h": ParamSpec((n, batch, R), ("layers", "act_batch",
+                                               "act_mlp"), torch.float32,
+                               init="zeros"),
+                "conv": ParamSpec((n, batch, W - 1, R),
+                                  ("layers", "act_batch", None, "act_mlp"),
+                                  dt, init="zeros"),
+            }
+        out = {"groups": {key: rec_state(G) if kind == "rec"
+                          else {"k": ring, "v": ring} for key, kind in keys}}
+        if rem:
+            out["tail"] = rec_state(rem)
+        return out
     L, H, P, N = cfg.n_layers, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    W, di, dt = cfg.conv_width, cfg.d_inner, _dt(cfg)
+    W, di = cfg.conv_width, cfg.d_inner
     return {
         "state": ParamSpec((L, batch, H, P, N),
                            ("layers", "act_batch", None, None, None),
@@ -139,9 +190,11 @@ def _logits_1tok(params, x, sctx: ShardingCtx, cfg: ArchConfig):
 
 def prefill_fn(params, batch, sctx: ShardingCtx, cfg: ArchConfig):
     """Process a full prompt; return (last-token logits, decode cache)."""
-    if cfg.family != "ssm":
-        raise _unported(cfg.family)
+    _check_family(cfg)
     x = _embed_tokens(params, batch["tokens"], sctx, cfg)
+    if cfg.family == "hybrid":
+        x, cache = _hybrid_prefill(params, x, sctx, cfg)
+        return _logits_1tok(params, x[:, -1], sctx, cfg), cache
     outs = {"state": [], "conv_x": [], "conv_B": [], "conv_C": []}
     for i in range(cfg.n_layers):
         p = _layer(params["blocks"], i)
@@ -155,14 +208,62 @@ def prefill_fn(params, batch, sctx: ShardingCtx, cfg: ArchConfig):
     return _logits_1tok(params, x[:, -1], sctx, cfg), cache
 
 
-def decode_fn(params, cache, token, pos, sctx: ShardingCtx, cfg: ArchConfig):
+def _stack_states(states: list) -> dict:
+    """Per-layer dicts of tensors -> one dict of tensors stacked along a
+    leading ``layers`` axis."""
+    return {k: torch.stack([st[k] for st in states]) for k in states[0]}
+
+
+def _rec_prefill(p, x, sctx: ShardingCtx, cfg: ArchConfig):
+    h, (h_last, tail) = rglru_apply(
+        p["temporal"], rmsnorm(p["ln1"], x, cfg.norm_eps), sctx, cfg)
+    x = x + h
+    x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), sctx)
+    return x, {"h": h_last, "conv": tail}
+
+
+def _hybrid_prefill(params, x, sctx: ShardingCtx, cfg: ArchConfig):
+    """The groups, then the tail.  An attention layer's K/V cache keeps the
+    last ``Wn = min(window, S)`` tokens, token p in ring slot p % Wn."""
+    S = x.shape[1]
+    G, rem, keys = _hybrid_layout(cfg)
+    positions = torch.arange(S, device=x.device)
+    Wn = min(cfg.window, S)
+    slots = torch.arange(Wn, device=x.device)
+    ring = (S - 1) - ((S - 1 - slots) % Wn)          # the position in each slot
+    states = {key: [] for key, _ in keys}
+    for g in range(G):
+        gp = _layer(params["groups"], g)
+        for key, kind in keys:
+            if kind == "rec":
+                x, st = _rec_prefill(gp[key], x, sctx, cfg)
+            else:
+                k, v = block_prefill_kv(gp[key], x, cfg, positions)
+                x, _ = block_apply(gp[key], x, sctx, cfg, positions=positions,
+                                   window=cfg.window)
+                st = {"k": k[:, :, ring], "v": v[:, :, ring]}
+            states[key].append(st)
+    cache = {"groups": {key: _stack_states(v) for key, v in states.items()}}
+    if rem:
+        tail = []
+        for i in range(rem):
+            x, st = _rec_prefill(_layer(params["tail"], i), x, sctx, cfg)
+            tail.append(st)
+        cache["tail"] = _stack_states(tail)
+    return x, cache
+
+
+def decode_fn(params, cache, token, pos: int, sctx: ShardingCtx,
+              cfg: ArchConfig):
     """token: (B,) integer; pos: the token's position (the ssm family keeps
     no positions).  Returns (logits, new cache); ``cache`` is not
     modified."""
-    if cfg.family != "ssm":
-        raise _unported(cfg.family)
+    _check_family(cfg)
     x = F.embedding(token, params["embed"])
     x = sctx.constrain(x, ("act_batch", None))
+    if cfg.family == "hybrid":
+        x, new_cache = _hybrid_decode(params, cache, x, pos, sctx, cfg)
+        return _logits_1tok(params, x, sctx, cfg), new_cache
     new_cache = {k: torch.empty_like(v) for k, v in cache.items()}
     for i in range(cfg.n_layers):
         p = _layer(params["blocks"], i)
@@ -175,6 +276,51 @@ def decode_fn(params, cache, token, pos, sctx: ShardingCtx, cfg: ArchConfig):
                            ("conv_B", bufs["B"]), ("conv_C", bufs["C"])):
             new_cache[key][i] = value
     return _logits_1tok(params, x, sctx, cfg), new_cache
+
+
+def _rec_step(p, x, state: dict, sctx: ShardingCtx, cfg: ArchConfig):
+    h, h_new, buf = rglru_decode_step(
+        p["temporal"], rmsnorm(p["ln1"], x, cfg.norm_eps), state["h"],
+        state["conv"], cfg)
+    x = x + h
+    x = x + mlp_apply_1tok(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), sctx)
+    return x, {"h": h_new, "conv": buf}
+
+
+def _hybrid_decode(params, cache, x, pos: int, sctx: ShardingCtx,
+                   cfg: ArchConfig):
+    """One token through the groups and the tail.  The ring's length ``Wn``
+    is read from the cache; the token goes into slot ``pos % Wn``, and a
+    slot not written yet is labelled ``pos + 1``, so it is masked."""
+    G, rem, keys = _hybrid_layout(cfg)
+    attn = [key for key, kind in keys if kind != "rec"]
+    Wn = cache["groups"][attn[0]]["k"].shape[3] if attn else cfg.window
+    slot = pos % Wn
+    held = pos - ((pos - torch.arange(Wn, device=x.device)) % Wn)
+    slot_pos = torch.where(held >= 0, held, pos + 1)
+    states = {key: [] for key, _ in keys}
+    for g in range(G):
+        gp = _layer(params["groups"], g)
+        st = _layer(cache["groups"], g)
+        for key, kind in keys:
+            if kind == "rec":
+                x, new = _rec_step(gp[key], x, st[key], sctx, cfg)
+            else:
+                x, ck, cv = block_decode(gp[key], x, st[key]["k"],
+                                         st[key]["v"], pos, sctx, cfg,
+                                         slot=slot, slot_pos=slot_pos)
+                new = {"k": ck, "v": cv}
+            states[key].append(new)
+    new_cache = {"groups": {key: _stack_states(v)
+                            for key, v in states.items()}}
+    if rem:
+        tail = []
+        for i in range(rem):
+            x, new = _rec_step(_layer(params["tail"], i), x,
+                               _layer(cache["tail"], i), sctx, cfg)
+            tail.append(new)
+        new_cache["tail"] = _stack_states(tail)
+    return x, new_cache
 
 
 # ===========================================================================

@@ -21,8 +21,9 @@ import torch.nn.functional as F
 from repro_torch.core.recurrence import linear_recurrence
 from repro_torch.sharding import ShardingCtx
 from .config import ArchConfig
+from .layers import _dt
 from .params import ParamSpec
-from .ssm import _causal_conv, _conv_step, _dt
+from .ssm import _causal_conv, _conv_step
 
 RG_C = 8.0
 

@@ -21,18 +21,8 @@ import torch.nn.functional as F
 from repro_torch.core.recurrence import linear_recurrence
 from repro_torch.sharding import ShardingCtx
 from .config import ArchConfig
-from .layers import rmsnorm
+from .layers import _dt, _silu, rmsnorm
 from .params import ParamSpec
-
-
-def _dt(cfg: ArchConfig) -> torch.dtype:
-    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-
-
-def _silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu``'s order: the sigmoid rounded to x's dtype, then the
-    product (``F.silu`` rounds once)."""
-    return x * torch.sigmoid(x)
 
 
 def ssm_specs(cfg: ArchConfig) -> dict:

@@ -8,9 +8,11 @@ diagonals in every system, on its on-chip route up to
 ``ops.batch_onchip_max_rows`` and its stream route forced, each against
 the plain version in the route's own chunks), ``recurrence_sweep.cu`` (the gated
 recurrences, distinct gates in every column, and their autograd),
-``fused_cn.cu`` (the two fused CN steps), and the serving path of
-mamba2-130m at its smoke config (the SSD layer on the card against its CPU
-run, one ``recur1`` launch a layer in a prefill).
+``fused_cn.cu`` (the two fused CN steps), and the serving paths of
+mamba2-130m and recurrentgemma-9b at their smoke configs (the SSD layer on
+the card against its CPU run, one ``recur1`` launch an SSD or RG-LRU layer
+in a prefill, the hybrid model's log-probs against the CPU's across a
+wrapped ring).
 
 Every test here is marked ``cuda`` and needs a CUDA device; without one
 they skip.  The file imports torch, numpy and ``repro_torch`` only, so it
@@ -701,3 +703,36 @@ def test_prefill_launches_the_recurrence_once_a_layer(cuda_device):
     want, _ = cpu.prefill({"tokens": toks})
     got = torch.log_softmax(logits, -1).cpu()
     assert (got - torch.log_softmax(want, -1)).abs().max().item() <= 1e-3
+
+
+def test_hybrid_prefill_and_decode_on_card_match_cpu(cuda_device):
+    """recurrentgemma-9b at its smoke config, prompt past the window of 32
+    (a wrapped ring): one ``recur1`` launch per RG-LRU layer in a prefill
+    (4 of the 5 layers), none in decode; the card's fp32 log-probs agree
+    with the CPU's after the prefill and after a decode step."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_smoke_config("recurrentgemma-9b"),
+                              dtype="float32")
+    cpu = Model(cfg, device="cpu", seed=4)
+    card = Model(cfg, device=cuda_device, params=cpu.params.tree())
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (2, 41)))
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ops.reset_launches()
+        logits, cache = card.prefill({"tokens": toks[:, :40].to(cuda_device)})
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES == {"recur1": 4}
+        ops.reset_launches()
+        step, _ = card.decode(cache, toks[:, 40].to(cuda_device), 40)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES == {}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    want, want_cache = cpu.prefill({"tokens": toks[:, :40]})
+    want_step, _ = cpu.decode(want_cache, toks[:, 40], 40)
+    for got, ref in ((logits, want), (step, want_step)):
+        got = torch.log_softmax(got, -1).cpu()
+        assert (got - torch.log_softmax(ref, -1)).abs().max().item() <= 1e-3

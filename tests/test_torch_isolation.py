@@ -36,7 +36,7 @@ print(len(names), ",".join(subpackages), ",".join(leaked))
 # layers, the serving driver and the sharding rules among them
 SUBPACKAGES = ["configs", "convert", "core", "kernels", "launch", "models",
                "pde", "sharding", "solver"]
-MODULES = 47
+MODULES = 48
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
