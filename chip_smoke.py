@@ -23,12 +23,17 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
      kernel (4 specs × fp32, fp64, bf16, fp16) and both
      fused CN steps (fp32, fp64) are held the same way, with distinct
      operands in every column, at N ∈ {1, 2, 3, 600}, a ragged M and one
-     full-size grid; the fused steps on operands drawn at random, against
-     the largest term the step forms, on the route each N takes, on the
-     partitioned route forced (where N makes two row blocks) and on the
-     global route forced, also at the on-chip route's last N and past it
-     (N_max + 1, 2 N_max, 4096 and 12,000 rows, where a forced on-chip
-     launch must raise), each route counted under its own name;
+     full-size grid (the recurrence on the route it picks, on the walk and
+     the tile forced and on the tile in 16 chunks, each in its own order,
+     also at the tile's edges, N = R ± 1, 16 R ± 1 and 32 R + 3 at M = 333,
+     and at (n)'s and (o)'s M, where a forced geometry the kernel has no
+     instantiation for must raise); the fused steps on operands drawn at
+     random, against the largest term the step forms, on the route each N
+     takes, on the partitioned route forced (where N makes two row
+     blocks) and on the global route forced, also at the on-chip route's
+     last N and past it (N_max + 1, 2 N_max, 4096 and 12,000 rows, where
+     a forced on-chip launch must raise), each route counted under its
+     own name;
   4. the main path at full size through ``repro_torch.solver`` (factorize
      with ``backend="auto"``, solve, and the adjoint through
      ``loss.backward()``), with the launch counts read around each case and
@@ -37,10 +42,12 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
   5. the recurrences and the PDE steps through their public entry points,
      each with its launch counts: (f) the RG-LRU scan at recurrentgemma-9b's
      width, (g) the SSD inter-chunk scan at mamba2-130m's, (h) an order-2
-     reverse recurrence with an h0 pair, each forward and backward against
-     an fp64 plain scan and its autograd; (i) ``DiffusionCN(backend=
-     "fused")`` against the ``cuda`` pipeline and the analytic decay, (j)
-     ``fused_cn_penta_step`` against ``HyperdiffusionCN(backend="cuda")``,
+     reverse recurrence with an h0 pair, (o) the RG-LRU scan of one
+     request of recurrentgemma-9b's prefill (S 1984 × B 1 × 4096), each
+     forward and backward against an fp64 plain scan and its autograd;
+     (i) ``DiffusionCN(backend="fused")`` against the ``cuda`` pipeline
+     and the analytic decay, (j) ``fused_cn_penta_step`` against
+     ``HyperdiffusionCN(backend="cuda")``,
      both on the fused steps' on-chip route; (k) ``ADI2D`` against the
      analytic decay; (l) both fused steps at N = 4096, past the on-chip
      route's rows, against the ``cuda`` pipeline (the partitioned route);
@@ -53,8 +60,14 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
      at fp32 and, once each, at fp64 (256 rows, its on-chip route's last
      N) and bf16 storage, with the tile, its blocks per SM and ptxas
      report, and runs the overflow-prone case at the full grid; each
-     recurrence row
-     also times the public entry point on the case's own operands (the
+     recurrence row ((f), (g), (h), (o), and (m) and (n) after serving)
+     times the walk, the tile route and the walk again (an identical
+     launch, whose distance from the first walk is the turns' noise) in
+     turns, each held against the plain version in its order, with the
+     route the rule picks, a verdict on it against the other route, the
+     tile's chunks, rows and blocks per SM and both kernels' ptxas
+     report, and
+     times the public entry point on the case's own operands (the
      SSD gate broadcast), forward and forward + backward, beside the
      function's own byte floor; each on-chip fused row times the on-chip
      and the global route in turns, at fp32 and fp64, with the rate on
@@ -100,10 +113,17 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; a machine without CUDA fails, it never runs on the CPU.
+
+    python3 chip_smoke.py --routes [--out build/recurrence_routes.json]
+
+builds the kernels and, instead of the phases above, times the recurrence
+kernel's two routes over a grid (``recurrence_route_grid``): the data the
+route rule ``ops.recurrence_route`` and its chunk counts are chosen from.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import re
@@ -311,9 +331,10 @@ def fused_shapes(dtype) -> tuple:
 def _template_args(mangled: str) -> str:
     """``fLi2ELi32ELb0E`` -> ``f,2,32,0``: a mangled template argument
     list, types as their letter (bf16 as ``bf16``) and integers as such."""
-    return ",".join(num or ("bf16" if bf else letter) for num, bf, letter in
-                    re.findall(r"L[a-z](\d+)E|(\d+__nv_bfloat16)|([a-z])",
-                               mangled))
+    return ",".join(num or ("bf16" if bf else "fp16" if hf else letter)
+                    for num, bf, hf, letter in re.findall(
+                        r"L[a-z](\d+)E|(\d+__nv_bfloat16)|(\d+__half)|([a-z])",
+                        mangled))
 
 
 def ptxas_summary(log: str) -> dict:
@@ -439,6 +460,47 @@ def batch_routes_vs_plain(name, label, spec, diags, rhs, compare) -> None:
                                "took a system it cannot hold")
 
 
+def recur_shapes() -> tuple:
+    """``_RECUR_SHAPES`` and the tile route's edges at its largest window
+    (P = 16 chunks of R rows): N = R - 1, R, R + 1, P R - 1, P R + 1 and
+    2 P R + 3 at a ragged M = 333, and (n)'s and (o)'s M at (n)'s N."""
+    from repro_torch.kernels import ops
+    p, r = ops.RECURRENCE_MAX_CHUNKS, ops.RECURRENCE_ROWS
+    edges = tuple((n, 333) for n in (r - 1, r, r + 1, p * r - 1, p * r + 1,
+                                     2 * p * r + 3))
+    return _RECUR_SHAPES + edges + ((HYBRID_PROMPT, RGLRU_WIDTH),
+                                    (HYBRID_PROMPT,
+                                     SERVE_BATCH * RGLRU_WIDTH))
+
+
+def recur_routes_vs_plain(name, label, spec, gates, q, compare) -> None:
+    """The recurrence kernel on the route it picks, on the walk and the
+    tile forced and on the tile in 16 chunks, each against the plain
+    version in that route's order and counted once under the spec's name;
+    a forced geometry the kernel has no instantiation for must raise."""
+    from repro_torch.kernels import ops
+    n, m = q.shape
+    for route, chunks in ((None, None), ("walk", None), ("tile", None),
+                          ("tile", ops.RECURRENCE_MAX_CHUNKS)):
+        picked = ops.recurrence_tuned(n, m, q.dtype, spec.order, route,
+                                      chunks)
+        ops.reset_launches()
+        got = ops.recurrence_cuda(spec, gates, q, route=route, chunks=chunks)
+        check(ops.LAUNCHES == {name: 1},
+              f"{name}/{label} N={n}: launches {ops.LAUNCHES}")
+        compare(f"{name}/{route or 'picked'}", label, n, m, got,
+                ops.route_plain(spec, gates, q, picked),
+                _RECUR_TOLERANCE[label])
+        del got
+    for kw in ({"route": "tile", "chunks": ops.RECURRENCE_MAX_CHUNKS + 1},
+               {"route": "walk", "chunks": 2}):
+        try:
+            ops.recurrence_cuda(spec, gates, q, **kw)
+        except ValueError:
+            continue
+        raise SmokeFailure(f"{name}/{label}: forced {kw} did not raise")
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -477,13 +539,11 @@ def phase_kernel_vs_plain() -> None:
             if label == "float16" and spec.layout != "recurrence":
                 continue   # only the recurrence kernel stores fp16
             if spec.layout == "recurrence":
-                for n, m in _RECUR_SHAPES:
+                for n, m in recur_shapes():
                     gates, q = random_recur_operands(spec.order, n, m,
                                                      storage, gen)
-                    compare(name, label, n, m,
-                            ops.recurrence_cuda(spec, gates, q),
-                            ops.recurrence_plain(spec, gates, q),
-                            _RECUR_TOLERANCE[label])
+                    recur_routes_vs_plain(name, label, spec, gates, q,
+                                          compare)
                     del gates, q
                 continue
             if spec.layout == "batch":
@@ -585,7 +645,9 @@ def phase_kernel_vs_plain() -> None:
             torch.cuda.empty_cache()
     emit({"phase": "kernel_vs_plain", "seconds": time.perf_counter() - t0,
           "shapes": [list(s) for s in shapes],
-          "recurrence_shapes": [list(s) for s in _RECUR_SHAPES],
+          "recurrence_shapes": [list(s) for s in recur_shapes()],
+          "recurrence_routes": ["picked", "walk", "tile",
+                                "tile in 16 chunks"],
           "fused_shapes": {label: [list(s) for s in fused_shapes(
               getattr(torch, label))] for label in ("float32", "float64")},
           "tolerance": _TOLERANCE, "recurrence_tolerance": _RECUR_TOLERANCE,
@@ -761,10 +823,10 @@ def recurrence_cases(gen) -> dict:
     leaves (gates, q and the seeds) on the card."""
     import torch
 
-    def rglru():
+    def rglru(seq=SEQ, batch=RGLRU_BATCH):
         # per-token gates a in (0, 1); q = sqrt(1 - a^2) x, RG-LRU's input
         # normalisation, so h stays of unit scale
-        shape = (SEQ, RGLRU_BATCH, RGLRU_WIDTH)
+        shape = (seq, batch, RGLRU_WIDTH)
         a = torch.rand(shape, generator=gen, device="cuda")
         x = torch.randn(shape, generator=gen, device="cuda")
         return [a, torch.sqrt(1 - a * a) * x]
@@ -795,6 +857,9 @@ def recurrence_cases(gen) -> dict:
               "heads x 64 x 128)", 1, False, ssd),
         "h": ("order 2, reverse, with an h0 pair (4096 x 65536)", 2, True,
               order2),
+        "o": ("RG-LRU scan, one request of recurrentgemma-9b's prefill "
+              "(S 1984 x B 1 x 4096)", 1, False,
+              lambda: rglru(HYBRID_PROMPT, 1)),
     }
 
 
@@ -809,7 +874,7 @@ def _recur_call(order: int, reverse: bool, leaves: list, method: str):
 
 
 def phase_recurrences() -> dict:
-    """(f)–(h): counts to 0, ``method="auto"`` forward and
+    """(f)–(h) and (o): counts to 0, ``method="auto"`` forward and
     ``loss.backward()`` with loss = ½‖h‖², counts read.  Then h and every
     gradient are held against an fp64 plain scan of the same leaves and
     autograd through it (no hand-written backward)."""
@@ -1743,31 +1808,75 @@ _RECUR_ROWS = {"f": (1, False, SEQ, RGLRU_BATCH * RGLRU_WIDTH),
                "h": (2, True, SEQ, 65536),
                "m": (1, False, SERVE_PROMPT // 64,
                      SERVE_BATCH * SSD_HEADS * SSD_HEAD_DIM * SSD_STATE),
-               "n": (1, False, HYBRID_PROMPT, SERVE_BATCH * RGLRU_WIDTH)}
+               "n": (1, False, HYBRID_PROMPT, SERVE_BATCH * RGLRU_WIDTH),
+               "o": (1, False, HYBRID_PROMPT, RGLRU_WIDTH)}
 
 
-def recurrence_times(key: str, launches: int, card: str, gen) -> dict:
+def recurrence_ptxas(ptxas: dict, order: int) -> dict:
+    """The ptxas report of the recurrence kernel's fp32 kernels of one
+    order: the walk (``recurrence_kernel<f,f,order,reverse>``) and the tile
+    (``recurrence_tile_kernel<f,f,order,reverse>``)."""
+    return {k: v for k, v in ptxas.items()
+            if k.startswith("recurrence_") and f"<f,f,{order}," in k}
+
+
+def route_verdict(stats: dict, picked: str, other: str) -> dict:
+    """The picked route against the other in the same turns: the margin
+    (other / picked − 1), the noise of the turns (the relative distance
+    between the two identical walk launches, ``walk`` and ``walk_again``)
+    and the verdict: ``"picked faster"`` or ``"other faster"`` where the
+    quartiles part and the margin passes the noise, else ``"tie"``."""
+    mine, theirs = stats[picked], stats[other]
+    walks = (stats["walk"]["ms"], stats["walk_again"]["ms"])
+    noise = abs(walks[0] - walks[1]) / min(walks)
+    margin = theirs["ms"] / mine["ms"] - 1
+    verdict = "tie"
+    if theirs["ms_q1"] > mine["ms_q3"] and margin > noise:
+        verdict = "picked faster"
+    elif mine["ms_q1"] > theirs["ms_q3"] and -margin > noise:
+        verdict = "other faster"
+    return {"margin": margin, "noise": noise, "verdict": verdict}
+
+
+def recurrence_times(key: str, launches: int, card: str, gen,
+                     ptxas: dict) -> dict:
     """The recurrence kernel's row at a case's (N, M), fp32, distinct
-    gates in every column."""
+    gates in every column: the walk, the tile and the walk again timed in
+    turns (``route_turns``), each route held against the plain version in
+    its order; ``ms`` is the route the rule picks, ``route_verdict`` judges
+    it, and ``plain_ms`` times the sequential plain walk.  With the tile's
+    chunks and rows, its blocks per SM and both kernels' ptxas report."""
     import torch
     from repro_torch.kernels import engine, ops
 
     order, reverse, n, m = _RECUR_ROWS[key]
     spec = engine.find_recurrence_spec(order, reverse=reverse)
     gates, q = random_recur_operands(order, n, m, torch.float32, gen)
-    stats = kernel_stats(lambda: ops.recurrence_cuda(spec, gates, q))
+    picked = ops.recurrence_route(n, m, torch.float32, order)
+    calls = {"walk": {"route": "walk"}, "tile": {"route": "tile"},
+             "walk_again": {"route": "walk"}}
+    stats = route_turns(
+        lambda which: ops.recurrence_cuda(spec, gates, q, **calls[which]),
+        *calls)
+    errs = {}
+    for k in ("walk", "tile"):
+        route = ops.recurrence_route(n, m, torch.float32, order, k)
+        want = ops.route_plain(spec, gates, q, route)
+        got = ops.recurrence_cuda(spec, gates, q, route=k)
+        errs[k] = (got - want).abs().max().item()
+        check(errs[k] <= 1e-5 * want.abs().max().item(),
+              f"({key}) recurrence {k} route vs plain max|Δ| {errs[k]:.3e}")
+        del got, want
     plain_ms = event_ms(lambda: ops.recurrence_plain(spec, gates, q),
                         reps=3, warmup=1)
-    got = ops.recurrence_cuda(spec, gates, q)
-    want = ops.recurrence_plain(spec, gates, q)
-    max_abs_err = (got - want).abs().max().item()
-    check(max_abs_err <= 1e-5 * want.abs().max().item(),
-          f"({key}) recurrence kernel vs plain max|Δ| {max_abs_err:.3e}")
-    del got, want, gates, q
+    del gates, q
     torch.cuda.empty_cache()
     bound_ms, bound_by = bound(spec, n, m, card)
+    tile = ops.recurrence_route(n, m, torch.float32, order, "tile")
     entry = (recurrence_entry_times(key, card, gen)
              if key in recurrence_cases(gen) else {})
+    mine = stats[picked.name]
+    other = "tile" if picked.name == "walk" else "walk"
     return {
         "name": f"recurrence_sweep/{spec.name}/N{n}xM{m}",
         "route": "cuda",
@@ -1775,18 +1884,32 @@ def recurrence_times(key: str, launches: int, card: str, gen) -> dict:
         "replaces": "src/repro/kernels/engine.py:1156",
         "also_replaces": ["src/repro/kernels/engine.py:1169"],
         "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": stats["ms"], "plain_ms": plain_ms,
+        "max_abs_err": errs[picked.name],
+        "ms": mine["ms"], "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
         "library_note": "no single PyTorch call computes a linear "
                         "recurrence",
-        "case": key, "ms_q1": stats["ms_q1"], "ms_q3": stats["ms_q3"],
-        "reps": stats["reps"], **entry,
+        "case": key, "ms_q1": mine["ms_q1"], "ms_q3": mine["ms_q3"],
+        "reps": mine["reps"],
+        "sweep_route": dataclasses.asdict(picked),
+        "walk_ms": stats["walk"]["ms"], "walk_ms_q1": stats["walk"]["ms_q1"],
+        "walk_ms_q3": stats["walk"]["ms_q3"],
+        "tile_ms": stats["tile"]["ms"], "tile_ms_q1": stats["tile"]["ms_q1"],
+        "tile_ms_q3": stats["tile"]["ms_q3"],
+        "walk_again_ms": stats["walk_again"]["ms"],
+        "route_check": route_verdict(stats, picked.name, other),
+        "other_route_abs_err": errs[other],
+        "tile": {"chunks": tile.chunks, "rows": tile.rows,
+                 "threads": tile.threads},
+        "blocks_per_sm": ops.recurrence_tile_blocks_per_sm(
+            torch.float32, order, tile.chunks),
+        "ptxas": recurrence_ptxas(ptxas, order),
+        **entry,
     }
 
 
-def serve_recurrence_row(served: dict, card: str) -> dict:
+def serve_recurrence_row(served: dict, card: str, ptxas: dict) -> dict:
     """The recurrence kernel at a serving case's operand ((m): N 16 chunks,
     M = B 8 · 24 heads · 64 · 128; (n): N = S 1984, M = B 8 · rnn_width
     4096), with the serve run's launches, and its share of a prefill: a
@@ -1794,7 +1917,7 @@ def serve_recurrence_row(served: dict, card: str) -> dict:
     import torch
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
     row = recurrence_times(served["case"], served["launches"]["recur1"], card,
-                           gen)
+                           gen, ptxas)
     per_prefill = served["recur1_per_prefill"]
     row.update({"recur1_per_prefill": per_prefill,
                 "prefill_event_ms": served["prefill_event_ms"],
@@ -1838,18 +1961,80 @@ def recurrence_entry_times(key: str, card: str, gen) -> dict:
             "entry_fwd_bwd_bound_ms": 8 * words / rate * 1e3}
 
 
-def route_turns(call, first: str, second: str, reps: int = 10) -> dict:
-    """Two routes of a kernel timed in turns on one card: first, second,
-    second, first, ``reps`` launches a turn; ``call(route)`` launches once.
-    Medians and quartiles of each route's times."""
-    times = {first: [], second: []}
-    for which in (first, second, second, first):
-        times[which] += event_times(lambda: call(which), reps)
+def route_turns(call, *routes: str, reps: int = 10) -> dict:
+    """Routes of a kernel timed in turns on one card, ``reps`` launches a
+    turn; ``call(route)`` launches once.  One round a route: round r takes
+    the routes from the r-th on, cyclically, and then back (first, second,
+    second, first; then second, first, first, second), so that each route
+    opens and closes as many turns as any other.  Medians and quartiles of
+    each route's times."""
+    times = {which: [] for which in routes}
+    for r in range(len(routes)):
+        order = routes[r:] + routes[:r]
+        for which in order + order[::-1]:
+            times[which] += event_times(lambda: call(which), reps)
     out = {}
     for which, t in times.items():
         q1, _, q3 = statistics.quantiles(t, n=4)
         out[which] = {"ms": statistics.median(t), "ms_q1": q1, "ms_q3": q3,
                       "reps": len(t)}
+    return out
+
+
+# the grid of ``--routes``: (order, reverse, N, M) beyond the main-path
+# rows: M across the tile's column cutoff at N 1024, and short N
+_ROUTE_GRID = ([(1, False, 1024, m) for m in (4096, 16384, 65536, 98304,
+                                             131072, 262144, 1 << 20)]
+               + [(2, True, 1024, m) for m in (8192, 32768, 49152, 65536,
+                                               131072)]
+               + [(1, False, n, m) for n in (8, 16, 32, 64, 128, 256)
+                  for m in (4096, 32768, 1 << 20)]
+               + [(2, True, n, 32768) for n in (16, 64, 256)])
+
+
+def recurrence_route_grid(card: str) -> list:
+    """The recurrence kernel's routes over a grid, fp32, distinct gates in
+    every column: at the main-path rows (``_RECUR_ROWS``) and at
+    ``_ROUTE_GRID``, the walk, the tile in 1, 2, 4, 8 and 16 chunks (where
+    N fills them) and the walk again, in turns (``route_turns``), each
+    beside the byte floor, the rule's pick, the fastest and the turns'
+    noise (the two walks' distance); 40 launches a turn up to 2^25
+    elements, else 10.  One JSON line a row."""
+    import torch
+    from repro_torch.kernels import engine, ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    rows = [(key, *row) for key, row in _RECUR_ROWS.items()]
+    rows += [("grid", *row) for row in _ROUTE_GRID]
+    out = [{"blocks_per_sm_fp32": {
+        f"{o},{c}": ops.recurrence_tile_blocks_per_sm(torch.float32, o, c)
+        for o in (1, 2) for c in (1, 2, 4, 8, 16)}}]
+    emit(out[0])
+    for key, order, reverse, n, m in rows:
+        spec = engine.find_recurrence_spec(order, reverse=reverse)
+        gates, q = random_recur_operands(order, n, m, torch.float32, gen)
+        calls = {"walk": {"route": "walk"}}
+        for c in (1, 2, 4, 8, 16):
+            if c == 1 or (c - 1) * ops.RECURRENCE_ROWS < n:
+                calls[f"tile{c}"] = {"route": "tile", "chunks": c}
+        calls["walk_again"] = {"route": "walk"}
+        stats = route_turns(
+            lambda which: ops.recurrence_cuda(spec, gates, q, **calls[which]),
+            *calls, reps=40 if n * m <= 1 << 25 else 10)
+        del gates, q
+        torch.cuda.empty_cache()
+        picked = ops.recurrence_route(n, m, torch.float32, order)
+        ms = {k: v["ms"] for k, v in stats.items()}
+        walks = (ms["walk"], ms["walk_again"])
+        row = {"row": key, "order": order, "reverse": reverse, "n": n,
+               "m": m, "bound_ms": bound(spec, n, m, card)[0],
+               "picked": dataclasses.asdict(picked), "ms": ms,
+               "q1": {k: v["ms_q1"] for k, v in stats.items()},
+               "q3": {k: v["ms_q3"] for k, v in stats.items()},
+               "best": min(ms, key=ms.get),
+               "noise": abs(walks[0] - walks[1]) / min(walks)}
+        emit(row)
+        out.append(row)
     return out
 
 
@@ -2143,7 +2328,7 @@ def phase_times(main: dict, card: str, ptxas: dict) -> list:
 
     for key, entry in main.items():
         if key in _RECUR_ROWS:
-            add(recurrence_times(key, entry, card, gen))
+            add(recurrence_times(key, entry, card, gen, ptxas))
         elif key in ("i", "j"):
             add(fused_times(key, entry[f"fused_cn_{'tridiag' if key == 'i'
                                                    else 'penta'}"],
@@ -2164,7 +2349,14 @@ def phase_times(main: dict, card: str, ptxas: dict) -> list:
     return rows
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--routes", action="store_true",
+                        help="time the recurrence kernel's routes over a "
+                             "grid instead of the phases")
+    parser.add_argument("--out", default="build/recurrence_routes.json",
+                        help="where --routes writes its rows")
+    args = parser.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -2202,11 +2394,18 @@ def main() -> int:
                      for name, log in reports.items()}
         ptxas = ptxas_summary(reports.get("fused_cn", "")
                               + reports.get("shared_sweep", "")
-                              + reports.get("batch_sweep", ""))
+                              + reports.get("batch_sweep", "")
+                              + reports.get("recurrence_sweep", ""))
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "built": sorted(reports), "registers": registers,
               "ptxas": ptxas, "dir": str(build.BUILD_DIR)})
 
+        if args.routes:
+            grid = recurrence_route_grid(card)
+            out = ROOT / args.out
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.write_text("".join(json.dumps(row) + "\n" for row in grid))
+            return 0
         phase_kernel_vs_plain()
         main = phase_main_path()
         main.update(phase_recurrences())
@@ -2216,7 +2415,7 @@ def main() -> int:
         peaks = [peak]
         for phase in (phase_serve, phase_serve_hybrid):
             served = phase(card)
-            kernels.append(serve_recurrence_row(served, card))
+            kernels.append(serve_recurrence_row(served, card, ptxas))
             peaks.append(served["peak_device_bytes"])
         emit({"phase": "summary", "seconds": time.perf_counter() - start,
               "peak_device_bytes": max(peaks)})

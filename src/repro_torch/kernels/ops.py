@@ -47,7 +47,16 @@ The gated recurrences (``h_i = p_i h_{i-1} + q_i`` and order 2):
     the host, as the JAX dispatcher does, so the kernel always starts
     from zero carries;
   * ``recurrence_sweep`` dispatches the same way, to
-    ``csrc/recurrence_sweep.cu`` or to ``recurrence_plain``.
+    ``csrc/recurrence_sweep.cu`` or to ``recurrence_plain``;
+  * ``recurrence_route(N, M, dtype, order)`` picks the kernel's route:
+    the tile (a block of 32 columns walks N in windows of row chunks, each
+    chunk walked from a zero carry with its unit-carry responses, joined
+    by a linear fold, and walked again from its true carry) from
+    ``RECURRENCE_TILE_MIN_ROWS`` rows up to
+    ``RECURRENCE_TILE_MAX_COLUMNS[order]`` columns, else the walk (one thread a
+    column).  The plain version takes the same chunks and repeats that
+    order; ``recurrence_cuda`` takes a forced ``route=`` and ``chunks=``,
+    to time them.
 
 ``LAUNCHES`` counts the kernels' launches by spec name; it is bumped
 where a kernel launches and nowhere else.
@@ -77,9 +86,11 @@ _ARGTYPES = {
     # threads, stream
     "batch_sweep": [_C_INT, _C_INT, _C_INT, _C_INT, ctypes.POINTER(_C_PTR),
                     _C_PTR, _C_PTR, _C_PTR, _C_I64, _C_I64, _C_INT, _C_PTR],
-    # dtype, order, reverse, gates, q, out, n, m, threads, stream
-    "recurrence_sweep": [_C_INT, _C_INT, _C_INT, ctypes.POINTER(_C_PTR),
-                         _C_PTR, _C_PTR, _C_I64, _C_I64, _C_INT, _C_PTR],
+    # dtype, order, reverse, route, chunks, rows, gates, q, out, n, m,
+    # threads, stream
+    "recurrence_sweep": [_C_INT, _C_INT, _C_INT, _C_INT, _C_INT, _C_INT,
+                         ctypes.POINTER(_C_PTR), _C_PTR, _C_PTR, _C_I64,
+                         _C_I64, _C_INT, _C_PTR],
     # dtype, bandwidth, route, blocks, chunks, stage, lhs, z, minv, params,
     # c, x, work, desc, n, m, threads, stream
     "fused_cn": [_C_INT, _C_INT, _C_INT, _C_INT, _C_INT, _C_INT, _C_PTR,
@@ -116,6 +127,25 @@ _ROUTE_CODES = {"serial": 0, "onchip": 1, "partition": 2}
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 #: The recurrence kernel also takes fp16 (fp32 carries, as for bf16).
 RECURRENCE_DTYPES = {**_DTYPE_CODES, torch.float16: 3}
+#: The recurrence kernel's routes (``csrc/recurrence_sweep.cu``): walk (one
+#: thread a column) and tile (TILE_M columns a block, in row chunks of
+#: RECURRENCE_ROWS rows joined by carry folds).
+RECURRENCE_ROUTES = ("walk", "tile")
+_RECURRENCE_ROUTE_CODES = {"walk": 0, "tile": 1}
+#: Rows a chunk of the tile route (compile-time in the kernel), and the
+#: chunks (warps) a block holds at most.
+RECURRENCE_ROWS = 8
+RECURRENCE_MAX_CHUNKS = 16
+#: The tile route's chunks a block by order: order 2 carries three times
+#: the summaries and half again the registers, and ran fastest at 8.
+RECURRENCE_TILE_CHUNKS = {1: RECURRENCE_MAX_CHUNKS, 2: 8}
+#: The tile takes N from this many rows (one window of 16 chunks; below it
+#: the walk ran as fast or faster on an H100) and M up to this many columns
+#: by order (the last M where the tile ran faster: the walk's grid then
+#: keeps too few loads in flight; past it the walk ran as fast or faster;
+#: PERF.md §6, ``chip_smoke.py --routes``).
+RECURRENCE_TILE_MIN_ROWS = RECURRENCE_MAX_CHUNKS * RECURRENCE_ROWS
+RECURRENCE_TILE_MAX_COLUMNS = {1: 98304, 2: 49152}
 _STORAGE_ALIASES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
                     "float32": torch.float32, "float64": torch.float64}
 
@@ -1146,19 +1176,132 @@ def same_dtype(name: str, operands, ref: torch.Tensor) -> None:
                         f"{ref.dtype}")
 
 
-def recurrence_plain(spec: RecurrenceSpec, gates, q: torch.Tensor
-                     ) -> torch.Tensor:
-    """The recurrence kernel's function in plain torch, one row at a time,
-    from zero carries: ``acc = q_i + g0_i h1 (+ g1_i h2)`` in the kernel's
-    term order.  bf16 and fp16 operands carry fp32 and store h at their
-    own type, as the kernel does."""
+@dataclasses.dataclass(frozen=True)
+class RecurrenceRoute:
+    """How ``csrc/recurrence_sweep.cu`` walks one (N, M, dtype, order): the
+    route, its row chunks a window and the rows of a chunk (the tile: a
+    block of TILE_M columns walks N in windows of ``chunks · rows`` rows;
+    the walk: one chunk of all N rows), and the threads of a block."""
+
+    name: str
+    chunks: int
+    rows: int
+    threads: int
+
+
+def recurrence_route(n: int, m: int, dtype, order: int,
+                     which: str | None = None) -> RecurrenceRoute:
+    """The route of the recurrence kernel at (N, M, dtype, order):
+    ``"tile"`` from ``RECURRENCE_TILE_MIN_ROWS`` rows and up to
+    ``RECURRENCE_TILE_MAX_COLUMNS[order]`` columns, in chunks of
+    ``RECURRENCE_ROWS`` rows, ``RECURRENCE_TILE_CHUNKS[order]`` chunks a
+    block or as many as N fills; else ``"walk"``, one thread a column in
+    blocks of ``DEFAULT_THREADS``.  A shape rule, not a
+    fallback.  ``which`` names a route to take instead; an unknown one, a
+    dtype the kernel does not take or an order other than 1 and 2 raises.
+    A pure function of its arguments."""
+    if dtype not in RECURRENCE_DTYPES:
+        raise TypeError(f"recurrence: unsupported dtype {dtype}")
+    if order not in (1, 2):
+        raise ValueError(f"recurrence: order must be 1 or 2, got {order}")
+    if which is None:
+        which = ("tile" if n >= RECURRENCE_TILE_MIN_ROWS
+                 and m <= RECURRENCE_TILE_MAX_COLUMNS[order] else "walk")
+    if which == "walk":
+        return RecurrenceRoute("walk", 1, max(n, 1), DEFAULT_THREADS)
+    if which == "tile":
+        rows = RECURRENCE_ROWS
+        chunks = max(1, min(RECURRENCE_TILE_CHUNKS[order], -(-n // rows)))
+        return RecurrenceRoute("tile", chunks, rows, TILE_M * chunks)
+    raise ValueError(f"recurrence: route must be one of {RECURRENCE_ROUTES}, "
+                     f"got {which!r}")
+
+
+def _recurrence_chunked(spec: RecurrenceSpec, gates, q: torch.Tensor,
+                        chunks: int, rows: int) -> torch.Tensor:
+    """The tile route's order, all columns at once: N cut, in walk order,
+    into windows of ``chunks`` chunks of ``rows`` rows; every chunk walked
+    from a zero carry with its responses to a unit carry (all windows at
+    once: they need no carry); then window by window, the linear fold of
+    the chunk summaries from the previous window's last ``order`` values to
+    each chunk's carry, and the walk from it that writes h.  Every row in
+    the kernel's term order; rows past N (the last window's padding) feed
+    only chunks that write nothing."""
+    cdt = compute_dtype(q.dtype)
+    n, m = q.shape
+    order, span = spec.order, chunks * rows
+    windows = -(-n // span)
+    dev = q.device
+
+    def walked(x: torch.Tensor) -> torch.Tensor:
+        x = x.flip(0) if spec.reverse else x
+        pad = torch.zeros((windows * span - n, m), dtype=cdt, device=dev)
+        return torch.cat([x.to(cdt), pad]).reshape(windows, chunks, rows, m)
+
+    g = [walked(t) for t in gates]
+    u = walked(q)
+    zeros = torch.zeros((windows, chunks, m), dtype=cdt, device=dev)
+    ones = torch.ones_like(zeros)
+    # walks from zero: the end state z and its responses to a unit h_{-1}
+    # (a) and to a unit h_{-2} (b)
+    z, a, b = [zeros, zeros], [ones, zeros], [zeros, ones]
+    for t in range(rows):
+        if order == 1:
+            z = [u[:, :, t] + g[0][:, :, t] * z[0]]
+            a = [g[0][:, :, t] * a[0]]
+        else:
+            g0, g1 = g[0][:, :, t], g[1][:, :, t]
+            z = [u[:, :, t] + g0 * z[0] + g1 * z[1], z[0]]
+            a = [g0 * a[0] + g1 * a[1], a[0]]
+            b = [g0 * b[0] + g1 * b[1], b[0]]
+    out = torch.empty((windows, chunks, rows, m), dtype=q.dtype, device=dev)
+    carry = (zeros[0, 0],) * 2
+    for v in range(windows):
+        starts, (h1, h2) = [], carry
+        for k in range(chunks):
+            starts.append((h1, h2))
+            if order == 1:
+                h1 = z[0][v, k] + a[0][v, k] * h1
+            else:
+                h1, h2 = (z[0][v, k] + a[0][v, k] * h1 + b[0][v, k] * h2,
+                          z[1][v, k] + a[1][v, k] * h1 + b[1][v, k] * h2)
+        h1 = torch.stack([s[0] for s in starts])
+        h2 = torch.stack([s[1] for s in starts])
+        for t in range(rows):
+            acc = u[v, :, t] + g[0][v, :, t] * h1
+            if order == 2:
+                acc = acc + g[1][v, :, t] * h2
+            out[v, :, t] = acc
+            h1, h2 = acc, h1
+        carry = (h1[-1], h2[-1])
+    out = out.reshape(windows * span, m)[:n]
+    return out.flip(0) if spec.reverse else out
+
+
+def recurrence_plain(spec: RecurrenceSpec, gates, q: torch.Tensor,
+                     chunks: int | None = None,
+                     rows: int | None = None) -> torch.Tensor:
+    """The recurrence kernel's function in plain torch, from zero carries:
+    ``acc = q_i + g0_i h1 (+ g1_i h2)`` in the kernel's term order.  bf16
+    and fp16 operands carry fp32 and store h at their own type, as the
+    kernel does.  With no ``chunks`` it is the walk route's order, one row
+    at a time; with ``chunks`` and ``rows`` the tile route's
+    (``_recurrence_chunked``)."""
+    if (chunks is None) != (rows is None):
+        raise ValueError("recurrence_plain: give both chunks and rows, or "
+                         "neither")
+    if chunks is not None:
+        if chunks < 1 or rows < 1:
+            raise ValueError(f"recurrence_plain: {chunks} chunks of {rows} "
+                             "rows")
+        return _recurrence_chunked(spec, gates, q, chunks, rows)
     cdt = compute_dtype(q.dtype)
     n, m = q.shape
     out = torch.empty((n, m), dtype=q.dtype, device=q.device)
     carries = (torch.zeros((m,), dtype=cdt, device=q.device),) * spec.order
     (pspec,) = spec.passes()
-    rows = range(n - 1, -1, -1) if spec.reverse else range(n)
-    for i in rows:
+    rows_at = range(n - 1, -1, -1) if spec.reverse else range(n)
+    for i in rows_at:
         acc = q[i].to(cdt)
         for src, lag in pspec.terms:
             acc = acc + gates[src][i].to(cdt) * carries[lag - 1]
@@ -1167,11 +1310,22 @@ def recurrence_plain(spec: RecurrenceSpec, gates, q: torch.Tensor
     return out
 
 
-def recurrence_cuda(spec: RecurrenceSpec, gates, q: torch.Tensor
+def route_plain(spec: RecurrenceSpec, gates, q: torch.Tensor,
+                picked: RecurrenceRoute) -> torch.Tensor:
+    """The plain version in the order of the route ``picked``."""
+    if picked.name == "tile":
+        return recurrence_plain(spec, gates, q, picked.chunks, picked.rows)
+    return recurrence_plain(spec, gates, q)
+
+
+def recurrence_cuda(spec: RecurrenceSpec, gates, q: torch.Tensor, *,
+                    route: str | None = None, chunks: int | None = None
                     ) -> torch.Tensor:
-    """Launch ``csrc/recurrence_sweep.cu`` on the current stream.
-    Validates device, dtype, shape and contiguity and raises on what the
-    kernel does not take; raises when the launch reports a CUDA error."""
+    """Launch ``csrc/recurrence_sweep.cu`` on the current stream, on the
+    route ``recurrence_route`` picks or on ``route`` forced; ``chunks``
+    overrides the tile's chunks a block, to time it.  Validates device, dtype, shape and contiguity and raises on what
+    the kernel does not take; raises when the launch reports a CUDA error.
+    Counts one launch under the spec's name."""
     n, m = q.shape
     operands = [*gates, q]
     if len(gates) != spec.order:
@@ -1181,12 +1335,11 @@ def recurrence_cuda(spec: RecurrenceSpec, gates, q: torch.Tensor
         raise ValueError("recurrence: every operand must lie on one CUDA "
                          "device")
     same_dtype("recurrence", gates, q)
-    if q.dtype not in RECURRENCE_DTYPES:
-        raise TypeError(f"recurrence: unsupported dtype {q.dtype}")
     if any(t.shape != (n, m) for t in gates):
         raise ValueError(f"recurrence: every gate must be ({n}, {m})")
     if not all(t.is_contiguous() for t in operands):
         raise ValueError("recurrence: operands must be contiguous")
+    picked = recurrence_tuned(n, m, q.dtype, spec.order, route, chunks)
     out = torch.empty((n, m), dtype=q.dtype, device=q.device)
     if n == 0 or m == 0:
         return out
@@ -1195,12 +1348,43 @@ def recurrence_cuda(spec: RecurrenceSpec, gates, q: torch.Tensor
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(RECURRENCE_DTYPES[q.dtype], spec.order, int(spec.reverse),
-                ptrs, q.data_ptr(), out.data_ptr(), n, m, DEFAULT_THREADS,
-                stream)
+                _RECURRENCE_ROUTE_CODES[picked.name], picked.chunks,
+                picked.rows, ptrs, q.data_ptr(), out.data_ptr(), n, m,
+                picked.threads, stream)
     if rc != 0:
-        raise RuntimeError(f"recurrence launch failed: CUDA error {rc}")
+        raise RuntimeError(f"recurrence ({picked.name} route) launch "
+                           f"failed: CUDA error {rc}")
     LAUNCHES[spec.name] = LAUNCHES.get(spec.name, 0) + 1
     return out
+
+
+def recurrence_tuned(n: int, m: int, dtype, order: int,
+                     route: str | None = None, chunks: int | None = None
+                     ) -> RecurrenceRoute:
+    """``recurrence_route(n, m, dtype, order, route)`` with the tile's
+    chunks replaced; raises where the kernel has no such geometry."""
+    picked = recurrence_route(n, m, dtype, order, route)
+    if chunks is not None:
+        if picked.name != "tile" or not 1 <= chunks <= RECURRENCE_MAX_CHUNKS:
+            raise ValueError(f"recurrence: chunks={chunks} needs the tile "
+                             f"route and 1..{RECURRENCE_MAX_CHUNKS} chunks")
+        picked = dataclasses.replace(picked, chunks=chunks,
+                                     threads=TILE_M * chunks)
+    return picked
+
+
+def recurrence_tile_blocks_per_sm(dtype, order: int, chunks: int) -> int:
+    """Blocks of the recurrence kernel's tile route in ``chunks`` chunks
+    that one SM holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs the card."""
+    fn = build.load("recurrence_sweep").recurrence_tile_blocks
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_C_INT, _C_INT, _C_INT, ctypes.POINTER(_C_INT)]
+    blocks = ctypes.c_int(0)
+    rc = fn(RECURRENCE_DTYPES[dtype], order, chunks, ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"recurrence_tile_blocks: CUDA error {rc}")
+    return blocks.value
 
 
 def recurrence_sweep(spec: RecurrenceSpec, gates, q: torch.Tensor

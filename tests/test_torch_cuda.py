@@ -7,7 +7,9 @@ diagonals, factorisation fused into the solve; tested with distinct
 diagonals in every system, on its on-chip route up to
 ``ops.batch_onchip_max_rows`` and its stream route forced, each against
 the plain version in the route's own chunks), ``recurrence_sweep.cu`` (the gated
-recurrences, distinct gates in every column, and their autograd),
+recurrences, distinct gates in every column, on the route
+``ops.recurrence_route`` picks and on the walk and the tile forced, each
+against the plain version in that route's order, and their autograd),
 ``fused_cn.cu`` (the two fused CN steps), and the serving paths of
 mamba2-130m and recurrentgemma-9b at their smoke configs (the SSD layer on
 the card against its CPU run, one ``recur1`` launch an SSD or RG-LRU layer
@@ -411,13 +413,56 @@ def test_recurrence_kernel_matches_plain(name, storage, n, cuda_device):
     spec = engine.REGISTRY[name]
     gates, q = _recur_operands(spec.order, n, 333, _TORCH_STORAGE[storage],
                                seed=n)
-    want = ops.recurrence_plain(spec, gates, q)
+    picked = ops.recurrence_route(n, 333, q.dtype, spec.order)
+    want = ops.route_plain(spec, gates, q, picked)
     before = ops.LAUNCHES.get(name, 0)
     got = ops.recurrence_sweep(spec, gates, q)
     torch.cuda.synchronize()
     assert ops.LAUNCHES[name] == before + 1
     assert got.is_cuda and got.dtype == want.dtype == q.dtype
     assert _rel(got, want) <= RECUR_TOL[storage]
+
+
+# the tile route's edges at its largest window (16 chunks of R rows) at a
+# ragged M, and a window past two at (o)'s and (n)'s M
+_P, _R = ops.RECURRENCE_MAX_CHUNKS, ops.RECURRENCE_ROWS
+RECUR_ROUTE_SHAPES = [(n, 333) for n in (1, 2, _R - 1, _R, _R + 1,
+                                         _P * _R - 1, _P * _R + 1,
+                                         2 * _P * _R + 3)] + [
+    (2 * _P * _R + 3, 4096), (2 * _P * _R + 3, 8 * 4096)]
+
+
+@pytest.mark.parametrize("n,m", RECUR_ROUTE_SHAPES)
+@pytest.mark.parametrize("storage", sorted(RECUR_TOL))
+@pytest.mark.parametrize("name", RECUR_SPECS)
+def test_recurrence_routes_match_plain(name, storage, n, m, cuda_device):
+    """The walk, the tile and the tile in 16 chunks, each forced, against
+    the plain version in that route's order; one launch each."""
+    spec = engine.REGISTRY[name]
+    gates, q = _recur_operands(spec.order, n, m, _TORCH_STORAGE[storage],
+                               seed=n + m)
+    for route, chunks in (("walk", None), ("tile", None), ("tile", _P)):
+        picked = ops.recurrence_tuned(n, m, q.dtype, spec.order, route,
+                                      chunks)
+        before = ops.LAUNCHES.get(name, 0)
+        got = ops.recurrence_cuda(spec, gates, q, route=route, chunks=chunks)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES[name] == before + 1
+        want = ops.route_plain(spec, gates, q, picked)
+        assert _rel(got, want) <= RECUR_TOL[storage], (route, chunks)
+
+
+@pytest.mark.parametrize("kw", [{"route": "tile", "chunks": 0},
+                                {"route": "tile", "chunks": _P + 1},
+                                {"route": "walk", "chunks": 2},
+                                {"route": "serial"}])
+def test_recurrence_forced_route_that_cannot_run_raises(kw, cuda_device):
+    spec = engine.find_recurrence_spec(1)
+    gates, q = _recur_operands(1, 40, 333, torch.float32)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError):
+        ops.recurrence_cuda(spec, gates, q, **kw)
+    assert ops.LAUNCHES == before
 
 
 @pytest.mark.parametrize("order", (1, 2))
