@@ -26,14 +26,14 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
      full-size grid (the recurrence on the route it picks, on the walk and
      the tile forced and on the tile in 16 chunks, each in its own order,
      also at the tile's edges, N = R ± 1, 16 R ± 1 and 32 R + 3 at M = 333,
-     and at (n)'s and (o)'s M, where a forced geometry the kernel has no
-     instantiation for must raise); the fused steps on operands drawn at
-     random, against the largest term the step forms, on the route each N
-     takes, on the partitioned route forced (where N makes two row
-     blocks) and on the global route forced, also at the on-chip route's
-     last N and past it (N_max + 1, 2 N_max, 4096 and 12,000 rows, where
-     a forced on-chip launch must raise), each route counted under its
-     own name;
+     at (n)'s and (o)'s M and at (q)'s operand, where a forced geometry
+     the kernel has no instantiation for must raise); the fused steps on
+     operands drawn at random, against the largest term the step forms,
+     on the route each N takes, on the partitioned route forced (where N
+     makes two row blocks) and on the global route forced, also at the
+     on-chip route's last N and past it (N_max + 1, 2 N_max, 4096 and
+     12,000 rows, where a forced on-chip launch must raise), each route
+     counted under its own name;
   4. the main path at full size through ``repro_torch.solver`` (factorize
      with ``backend="auto"``, solve, and the adjoint through
      ``loss.backward()``), with the launch counts read around each case and
@@ -108,7 +108,26 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
      prefill to 2080, across the wrap, against the prefill of each checked
      prefix with (m)'s bars.  The recurrence kernel's row at (n)'s operand
      (S 1984 × B 8 · 4096) gives its share of a prefill;
-  9. one summary line (the run's seconds and peak device memory) and one
+  9. (p) training mamba2-130m at its published config (24 layers, bf16,
+     remat on, random weights from the seed) through
+     ``repro_torch.launch.train.train``: 20 steps of B 8 × S 4096 (the
+     ``train_4k`` length), lr 3e-3 after 5 warmup steps, a checkpoint every
+     10 steps into ``build/train_p``; counts read around it (per step 48
+     ``recur1``, a forward and a remat recompute a layer, and 24
+     ``recur1_rev``, the adjoint; nothing else), finite losses whose last
+     five average below the first five, the step-19 checkpoint restored
+     bitwise onto the returned parameters and moments, and a second call
+     to 22 steps resuming at step 20; median step ms, tokens/s, peak
+     memory, one step timed with CUDA events and one traced.  (p') at full
+     width and 2 layers, fp32, ``loss_fn`` and its gradients on the card
+     against the CPU (loss within 1e-4 relative, each gradient leaf within
+     1e-3 of its largest entry, TF32 off).  (q) recurrentgemma-9b at full
+     width, 5 layers, bf16, B 1 × S 2048: one loss and backward, finite,
+     with 8 ``recur1`` and 4 ``recur1_rev`` launches.  The recurrence
+     kernel's rows at (p)'s operand (N 64 × M 1,572,864), forward and
+     adjoint, give its share of a step; (q)'s (N 2048 × M 4096) are timed
+     too;
+ 10. one summary line (the run's seconds and peak device memory) and one
      ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -126,6 +145,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -463,14 +483,16 @@ def batch_routes_vs_plain(name, label, spec, diags, rhs, compare) -> None:
 def recur_shapes() -> tuple:
     """``_RECUR_SHAPES`` and the tile route's edges at its largest window
     (P = 16 chunks of R rows): N = R - 1, R, R + 1, P R - 1, P R + 1 and
-    2 P R + 3 at a ragged M = 333, and (n)'s and (o)'s M at (n)'s N."""
+    2 P R + 3 at a ragged M = 333, (n)'s and (o)'s M at (n)'s N, and
+    (q)'s RG-LRU operand (N 2048 × M 4096)."""
     from repro_torch.kernels import ops
     p, r = ops.RECURRENCE_MAX_CHUNKS, ops.RECURRENCE_ROWS
     edges = tuple((n, 333) for n in (r - 1, r, r + 1, p * r - 1, p * r + 1,
                                      2 * p * r + 3))
     return _RECUR_SHAPES + edges + ((HYBRID_PROMPT, RGLRU_WIDTH),
                                     (HYBRID_PROMPT,
-                                     SERVE_BATCH * RGLRU_WIDTH))
+                                     SERVE_BATCH * RGLRU_WIDTH),
+                                    (HYBRID_TRAIN_SEQ, RGLRU_WIDTH))
 
 
 def recur_routes_vs_plain(name, label, spec, gates, q, compare) -> None:
@@ -1095,6 +1117,16 @@ def _device_kernels(prof) -> dict:
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
+def _device_ops(prof) -> dict:
+    """Device ms by the host op that launched it (``aten::mul``, ...) of a
+    profiler trace."""
+    from torch.autograd import DeviceType
+    out = {e.key: getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+           for e in prof.key_averages() if e.device_type == DeviceType.CPU}
+    return {k: v for k, v in out.items() if v > 0}
+
+
 def _device_kernel_ms(prof) -> tuple:
     """(all kernels, recurrence kernels) device ms of a profiler trace."""
     kernels = _device_kernels(prof)
@@ -1440,6 +1472,272 @@ def phase_serve_hybrid(card: str) -> dict:
                 "seconds": time.perf_counter() - t0})
     emit(row)
     return row
+
+
+# ---------------------------------------------------------------------------
+# cases (p), (p'), (q): training
+# ---------------------------------------------------------------------------
+
+# (p): mamba2-130m at its published config through launch.train.train, at
+# the train_4k sequence length (src/repro/configs/__init__.py) and a
+# micro-batch of 8; the SSD scan then runs at (g)'s operand, N 64 chunks x
+# M 8 * 24 heads * 64 * 128
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_RESUME_STEPS = 8, 4096, 20, 22
+TRAIN_LR, TRAIN_WARMUP, TRAIN_CKPT_EVERY = 3e-3, 5, 10
+# (p'): fp32 at full width, depth cut to 2 layers, card against CPU
+TRAIN_PARITY_LAYERS, TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 2, 256
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
+# (q): recurrentgemma-9b at full width, one (rec, rec, attn) group plus the
+# 2-layer tail, bf16, remat on, B 1 x S 2048: its RG-LRU scans run at
+# N 2048 x M 4096 on the tile route
+HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_SEQ = 5, 2048
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.cpu(), b.cpu())
+
+
+def _grads(cfg, params, batch) -> tuple:
+    """(loss, gradients in sorted-leaf order) of ``loss_fn`` on a copy of
+    ``params`` whose leaves require grad."""
+    import torch
+    from repro_torch.models.model import loss_fn
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    from repro_torch.sharding import ShardingCtx
+
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    loss, _ = loss_fn(tree_unflatten(params, leaves), batch,
+                      ShardingCtx.local(), cfg)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def phase_train(card: str) -> dict:
+    """(p): ``repro_torch.launch.train.train`` at mamba2-130m's published
+    config (remat on, random weights from the seed) for 20 steps, with the
+    counts set to 0 just before it and read just after: per step one
+    ``recur1`` and one remat recompute per layer and one ``recur1_rev``
+    (the adjoint), nothing else.  Finite losses whose last five average
+    below the first five; the committed checkpoint of step 19 restores
+    bitwise onto the returned parameters and moments; a second call to 22
+    steps on the same directory resumes at step 20.  Then one step timed
+    with CUDA events and one traced.  (p'): at full width, 2 layers, fp32,
+    ``loss_fn`` and its gradients on the card against the CPU's plain run
+    on the same weights and batch (TF32 off).  (q): recurrentgemma-9b at
+    full width, 5 layers, one ``loss_fn`` and backward, finite, with 8
+    ``recur1`` and 4 ``recur1_rev`` launches; no optimizer step (the
+    full-depth step needs more than one card)."""
+    import shutil
+
+    import torch
+    from repro_torch.ckpt import latest_step, restore
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import make_optimizer, train
+    from repro_torch.models import Model, build_model
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.sharding import ShardingCtx
+    from repro_torch.train import make_train_step
+
+    cfg = get_config(SERVE_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.vocab, cfg.dtype, cfg.remat)
+          == (24, 768, 50280, "bfloat16", True),
+          f"(p) {SERVE_ARCH} is not at its published config: {cfg}")
+    ckpt_dir = ROOT / "build" / "train_p"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+              warmup=TRAIN_WARMUP, ckpt_dir=str(ckpt_dir),
+              ckpt_every=TRAIN_CKPT_EVERY, log_every=5, device="cuda",
+              seed=SEED, log=lambda line: print(line, flush=True))
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out = train(cfg, steps=TRAIN_STEPS, **kw)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"recur1": 2 * L * TRAIN_STEPS, "recur1_rev": L * TRAIN_STEPS}
+    check(launches == want, f"(p) launches {launches}, expected {want}")
+    losses = out["losses"]
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"(p) losses not finite: {losses}")
+    first, last = (statistics.mean(losses[:5]), statistics.mean(losses[-5:]))
+    check(last < first, f"(p) loss did not descend: {losses}")
+    check(latest_step(str(ckpt_dir)) == TRAIN_STEPS - 1,
+          f"(p) latest committed step {latest_step(str(ckpt_dir))}")
+    saved, step = restore(str(ckpt_dir), TRAIN_STEPS - 1)
+    ours = {"params": out["params"], "opt": out["opt_state"]}
+    check(step == TRAIN_STEPS - 1
+          and len(tree_leaves(saved)) == len(tree_leaves(ours))
+          and all(_same_bits(a, b) for a, b in zip(tree_leaves(saved),
+                                                   tree_leaves(ours))),
+          "(p) the checkpoint of the last step does not restore bitwise")
+    del saved
+    ops.reset_launches()
+    again = train(cfg, steps=TRAIN_RESUME_STEPS, **kw)
+    torch.cuda.synchronize()
+    extra = TRAIN_RESUME_STEPS - TRAIN_STEPS
+    check(again["start"] == TRAIN_STEPS and len(again["losses"]) == extra
+          and ops.LAUNCHES == {"recur1": 2 * L * extra,
+                               "recur1_rev": L * extra},
+          f"(p) resume started at {again['start']} with launches "
+          f"{ops.LAUNCHES}")
+    del again
+    step_ms = statistics.median(out["step_s"]) * 1e3
+    row = {"phase": "train", "case": "p", "arch": SERVE_ARCH,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "lr": TRAIN_LR, "warmup": TRAIN_WARMUP, "remat": cfg.remat,
+           "launches": launches, "losses": losses,
+           "first5_mean": first, "last5_mean": last,
+           "resumed_at": TRAIN_STEPS,
+           "step_ms": [t * 1e3 for t in out["step_s"]],
+           "median_step_ms": step_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
+           "peak_device_bytes": peak, "train_seconds": time.perf_counter() - t0}
+
+    # one step of the same state: CUDA events, then a profiler trace
+    model = build_model(cfg, device="cuda", seed=SEED)
+    step_fn = make_train_step(model, ShardingCtx.local(), make_optimizer(
+        cfg, lr=TRAIN_LR, warmup=TRAIN_WARMUP, steps=TRAIN_STEPS))
+    batch = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                        global_batch=TRAIN_BATCH, seed=SEED).batch_at(
+        TRAIN_STEPS, device="cuda")
+    params, state = out["params"], out["opt_state"]
+    del out, model
+
+    def one_step():
+        return step_fn(params, state, batch, TRAIN_STEPS)
+
+    times = event_times(one_step, reps=5, warmup=1)
+    q1, _, q3 = statistics.quantiles(times, n=4)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        one_step()
+        torch.cuda.synchronize()
+    kernels = _device_kernels(prof)
+    kernels_ms, recur_ms = _device_kernel_ms(prof)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    top_ops = sorted(_device_ops(prof).items(), key=lambda kv: -kv[1])[:15]
+    row.update({"step_event_ms": statistics.median(times),
+                "trace_top_ops_ms": [[name, ms] for name, ms in top_ops],
+                "step_event_ms_q1": q1, "step_event_ms_q3": q3,
+                "step_event_reps": len(times),
+                "trace_top_kernels_ms": [[name[:80], ms] for name, ms in top],
+                "trace_kernels_ms": kernels_ms,
+                "trace_recurrence_ms": recur_ms,
+                "trace_recurrence_share": (recur_ms / kernels_ms
+                                           if kernels_ms else None)})
+    del params, state, batch, prof
+    torch.cuda.empty_cache()
+
+    # (p'): fp32 at full width, 2 layers, card against CPU
+    cut32 = dataclasses.replace(cfg, n_layers=TRAIN_PARITY_LAYERS,
+                                dtype="float32")
+    cpu = Model(cut32, device="cpu", seed=SEED + 11)
+    params = {"cpu": cpu.params.tree()}
+    params["card"] = tree_map(lambda t: t.cuda(), params["cpu"])
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_PARITY_SEQ,
+                       global_batch=TRAIN_PARITY_BATCH, seed=SEED + 11
+                       ).batch_at(0, device="cpu")
+    ops.reset_launches()
+    card_loss, card_grads = _grads(cut32, params["card"],
+                                   {k: v.cuda() for k, v in data.items()})
+    torch.cuda.synchronize()
+    check(ops.LAUNCHES == {"recur1": 2 * TRAIN_PARITY_LAYERS,
+                           "recur1_rev": TRAIN_PARITY_LAYERS},
+          f"(p') launches {ops.LAUNCHES}")
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "(p') TF32 is on for fp32 matmuls")
+    cpu_loss, cpu_grads = _grads(cut32, params["cpu"], data)
+    loss_err = abs(card_loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
+    grad_errs = [((g.cpu() - w).abs().max() / w.abs().max()).item()
+                 for g, w in zip(card_grads, cpu_grads)]
+    check(loss_err <= TRAIN_LOSS_TOL,
+          f"(p') fp32 loss, card vs CPU, relative {loss_err:.3e}")
+    check(max(grad_errs) <= TRAIN_GRAD_TOL,
+          f"(p') fp32 gradients, card vs CPU, worst leaf "
+          f"{max(grad_errs):.3e} of its max")
+    row.update({"parity_layers": TRAIN_PARITY_LAYERS,
+                "parity_batch": TRAIN_PARITY_BATCH,
+                "parity_seq": TRAIN_PARITY_SEQ,
+                "fp32_loss_rel_err": loss_err,
+                "fp32_grad_worst_leaf_rel_err": max(grad_errs)})
+    del cpu, params, card_grads, cpu_grads
+    torch.cuda.empty_cache()
+
+    # (q): the hybrid trunk under autograd at full width
+    hcfg = dataclasses.replace(get_config(HYBRID_ARCH),
+                               n_layers=HYBRID_TRAIN_LAYERS)
+    groups, tail = divmod(hcfg.n_layers, len(hcfg.block_pattern))
+    n_rec = groups * hcfg.block_pattern.count("rec") + tail
+    check((hcfg.d_model, hcfg.rnn_dim, hcfg.vocab, hcfg.window, hcfg.dtype,
+           hcfg.remat, n_rec) == (4096, 4096, 256000, 2048, "bfloat16", True,
+                                  4),
+          f"(q) {HYBRID_ARCH} cut is not at full width: {hcfg}")
+    check((HYBRID_TRAIN_SEQ, RGLRU_WIDTH) in recur_shapes(),
+          "(q) phase 3 does not hold the kernel at the RG-LRU operand")
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(hcfg, device="cuda", seed=SEED + 12)
+    hbatch = SyntheticLM(vocab=hcfg.vocab, seq_len=HYBRID_TRAIN_SEQ,
+                         global_batch=1, seed=SEED + 12).batch_at(
+        0, device="cuda")
+    ops.reset_launches()
+    t1 = time.perf_counter()
+    loss, grads = _grads(hcfg, model.params.tree(), hbatch)
+    torch.cuda.synchronize()
+    hybrid_s = time.perf_counter() - t1
+    check(ops.LAUNCHES == {"recur1": 2 * n_rec, "recur1_rev": n_rec},
+          f"(q) launches {ops.LAUNCHES}")
+    check(math.isfinite(loss.item())
+          and all(torch.isfinite(g).all().item() for g in grads),
+          "(q) the hybrid loss or a gradient is not finite")
+    row.update({"hybrid_layers": HYBRID_TRAIN_LAYERS,
+                "hybrid_seq": HYBRID_TRAIN_SEQ,
+                "hybrid_launches": dict(ops.LAUNCHES),
+                "hybrid_loss": loss.item(),
+                "hybrid_fwd_bwd_s": hybrid_s,
+                "hybrid_peak_device_bytes": torch.cuda.max_memory_allocated(),
+                "seconds": time.perf_counter() - t0})
+    del model, grads
+    torch.cuda.empty_cache()
+    emit(row)
+    return row
+
+
+def train_recurrence_rows(trained: dict, card: str, ptxas: dict) -> list:
+    """The recurrence kernel at (p)'s operand (N 64 x M 1,572,864), forward
+    (``recur1``) and adjoint (``recur1_rev``), and at (q)'s (N 2048 x
+    M 4096), each on its routes in turns against the plain version, with
+    the training runs' launches; (p)'s rows also give the kernel's share of
+    a step: its launches a step times its time over the step's CUDA-event
+    time."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    per_step = {"recur1": 2 * 24, "recur1_rev": 24}
+    rows = []
+    for key in ("p", "p_rev", "q", "q_rev"):
+        name = "recur1_rev" if key.endswith("_rev") else "recur1"
+        launches = (trained["launches"][name] if key.startswith("p")
+                    else trained["hybrid_launches"][name])
+        row = recurrence_times(key, launches, card, gen, ptxas)
+        if key.startswith("p"):
+            row.update({"launches_per_step": per_step[name],
+                        "step_event_ms": trained["step_event_ms"],
+                        "share_of_step": per_step[name] * row["ms"]
+                        / trained["step_event_ms"],
+                        "trace_recurrence_share":
+                            trained["trace_recurrence_share"]})
+        emit({"phase": "times", **row})
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _bound(nbytes: float, ops_count: float, card: str) -> tuple:
@@ -1809,7 +2107,13 @@ _RECUR_ROWS = {"f": (1, False, SEQ, RGLRU_BATCH * RGLRU_WIDTH),
                "m": (1, False, SERVE_PROMPT // 64,
                      SERVE_BATCH * SSD_HEADS * SSD_HEAD_DIM * SSD_STATE),
                "n": (1, False, HYBRID_PROMPT, SERVE_BATCH * RGLRU_WIDTH),
-               "o": (1, False, HYBRID_PROMPT, RGLRU_WIDTH)}
+               "o": (1, False, HYBRID_PROMPT, RGLRU_WIDTH),
+               "p": (1, False, SEQ // SSD_CHUNK,
+                     SSD_BATCH * SSD_HEADS * SSD_HEAD_DIM * SSD_STATE),
+               "p_rev": (1, True, SEQ // SSD_CHUNK,
+                         SSD_BATCH * SSD_HEADS * SSD_HEAD_DIM * SSD_STATE),
+               "q": (1, False, HYBRID_TRAIN_SEQ, RGLRU_WIDTH),
+               "q_rev": (1, True, HYBRID_TRAIN_SEQ, RGLRU_WIDTH)}
 
 
 def recurrence_ptxas(ptxas: dict, order: int) -> dict:
@@ -2417,6 +2721,10 @@ def main(argv=None) -> int:
             served = phase(card)
             kernels.append(serve_recurrence_row(served, card, ptxas))
             peaks.append(served["peak_device_bytes"])
+        trained = phase_train(card)
+        kernels += train_recurrence_rows(trained, card, ptxas)
+        peaks += [trained["peak_device_bytes"],
+                  trained["hybrid_peak_device_bytes"]]
         emit({"phase": "summary", "seconds": time.perf_counter() - start,
               "peak_device_bytes": max(peaks)})
         print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,9 +14,11 @@ For the models, ``params_from_jax`` turns a JAX parameter tree (nested
 dicts of numpy arrays, stacked along ``layers``) into the port's
 parameter tree, checked against ``param_specs``, and ``model_from_jax``
 into a ``Model``; ``cache_from_jax`` does the same for a decode cache,
-``tree_from_jax`` for any nested dict (one layer's parameters).  JAX's
-bfloat16 arrays (numpy's ``bfloat16`` extension type) become
-``torch.bfloat16`` exactly.
+``tree_from_jax`` for any nested dict (one layer's parameters), and
+``opt_state_from_jax`` for an AdamW state, so that a JAX train state
+(parameters, moments and step) continues in the port.  JAX's bfloat16
+arrays (numpy's ``bfloat16`` extension type) become ``torch.bfloat16``
+exactly.
 
 Everything here reads plain numpy and mappings only; the caller converts
 from JAX (``jax.tree_util.tree_map(np.asarray, tree)``).
@@ -37,6 +39,7 @@ from .models.params import check_tree, tree_leaves
 from .solver.functional import Factorization, SolveMeta
 from .solver.reference import _expand_if_scalarized
 from .solver.system import resolve_device
+from .train.optimizer import AdamW
 
 # JAX backend -> the port's backend holding the same stored layout
 _BACKENDS = {"pallas": "cuda", "reference": "reference", "cuda": "cuda"}
@@ -180,3 +183,16 @@ def cache_from_jax(cfg, cache, *, device) -> dict:
                 if SEQ_AXIS in spec.names), 0)
     check_tree(cache_specs(cfg, batch, seq), out)
     return out
+
+
+def opt_state_from_jax(cfg, tree, *, device) -> dict:
+    """The port's AdamW state of a JAX one: ``{"m", "v"}``, each a nested
+    mapping of numpy arrays shaped like the parameters, checked against
+    ``AdamW.state_specs(param_specs(cfg))`` in ``cfg.opt_dtype`` (the
+    moment dtype JAX's training driver takes from the config)."""
+    opt_dtype = torch.bfloat16 if cfg.opt_dtype == "bfloat16" else \
+        torch.float32
+    state = tree_from_jax(tree, device=device)
+    check_tree(AdamW(lr=None, opt_dtype=opt_dtype).state_specs(
+        param_specs(cfg)), state)
+    return state

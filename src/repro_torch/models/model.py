@@ -1,4 +1,5 @@
-"""Model assembly: the serving path of the ssm and hybrid families.
+"""Model assembly: the serving and training paths of the ssm and hybrid
+families.
 
 Counterpart of ``repro.models.model`` for the families ported so far:
 
@@ -7,14 +8,17 @@ Counterpart of ``repro.models.model`` for the families ported so far:
            tail of RG-LRU layers, the attention KV cache a ring of
            ``min(window, seq)`` slots (recurrentgemma-9b).
 
-``param_specs``, ``cache_specs``, ``init_cache``, ``prefill_fn`` and
-``decode_fn`` are plain functions on nested dicts of tensors, under the JAX
-names.  The layer stack is a loop over parameters stacked along a leading
-``layers`` axis (JAX's ``lax.scan``).  ``Model`` is the ``nn.Module`` that
-holds the parameters on one device and serves ``prefill`` / ``decode``;
-``build_model`` makes one.  The other families (dense, moe, encdec, vlm)
-raise ``NotImplementedError`` naming the ROADMAP item that brings them;
-training (``loss_fn``) comes with the training slice.
+``param_specs``, ``cache_specs``, ``init_cache``, ``prefill_fn``,
+``decode_fn`` and ``loss_fn`` are plain functions on nested dicts of
+tensors, under the JAX names.  The layer stack is a loop over parameters
+stacked along a leading ``layers`` axis (JAX's ``lax.scan``).  ``Model`` is
+the ``nn.Module`` that holds the parameters on one device and serves
+``prefill`` / ``decode``; ``build_model`` makes one.  Both families train:
+``loss_fn`` (the chunked cross-entropy over the trunk, each layer body
+under ``torch.utils.checkpoint`` when ``cfg.remat``, as JAX wraps it in
+``jax.checkpoint``) is differentiated by ``repro_torch.train``.  The other
+families (dense, moe, encdec, vlm) raise ``NotImplementedError`` naming
+the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -24,12 +28,13 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.sharding import ShardingCtx
 from repro_torch.solver.system import resolve_device
 from .config import ArchConfig
 from .layers import _dt, mlp_apply, mlp_apply_1tok, mlp_specs, rmsnorm
-from .params import ParamSpec, check_tree, init_params, tree_map
+from .params import ParamSpec, check_tree, init_params, tree_leaves, tree_map
 from .rglru import rglru_apply, rglru_decode_step, rglru_specs
 from .ssm import ssm_apply, ssm_decode_step, ssm_specs
 from .transformer import block_apply, block_decode, block_prefill_kv, block_specs
@@ -54,6 +59,14 @@ def _check_family(cfg: ArchConfig) -> None:
 def stack_specs(tree, n: int):
     return tree_map(lambda s: ParamSpec((n,) + s.shape, ("layers",) + s.names,
                                         s.dtype, s.init, s.scale), tree)
+
+
+def _maybe_remat(fn, cfg: ArchConfig):
+    """``fn`` recomputed in the backward pass (non-reentrant checkpoint:
+    only its inputs are kept) when ``cfg.remat``."""
+    if not cfg.remat:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
 # ===========================================================================
@@ -173,6 +186,15 @@ def _layer(stacked: dict, i: int) -> dict:
     return tree_map(lambda t: t[i], stacked)
 
 
+def _layers(stacked: dict) -> list:
+    """Every layer of a stacked tree, each leaf unbound once: under
+    autograd the gradient of the stacked leaf is then one ``stack``, not
+    one full-size scatter a layer."""
+    flat = tree_map(lambda t: torch.unbind(t, 0), stacked)
+    n = len(tree_leaves(flat)[0])
+    return [tree_map(lambda per, i=i: per[i], flat) for i in range(n)]
+
+
 def _embed_tokens(params, tokens, sctx: ShardingCtx, cfg: ArchConfig):
     x = F.embedding(tokens, params["embed"])
     return sctx.constrain(x, ("act_batch", "act_res_seq", None))
@@ -182,6 +204,87 @@ def _logits_1tok(params, x, sctx: ShardingCtx, cfg: ArchConfig):
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     logits = (x @ params["unembed"]).to(torch.float32)
     return sctx.constrain(logits, ("act_batch", "act_vocab"))
+
+
+# ===========================================================================
+# the training forward pass and loss
+# ===========================================================================
+
+def ce_loss_chunked(x, unembed, labels, sctx: ShardingCtx, chunk: int = 512):
+    """Cross-entropy without materialising (B, S, V) logits: the sequence
+    cut into ``max(S // chunk, 1)`` equal chunks (an S that does not cut
+    evenly raises, as JAX's reshape does), logits in the activations'
+    dtype cast to fp32, fp32 logsumexp; labels < 0 are masked."""
+    B, S, D = x.shape
+    nc = max(S // chunk, 1)
+    c = S // nc
+    xs = torch.movedim(x.reshape(B, nc, c, D), 1, 0)
+    ls = torch.movedim(labels.reshape(B, nc, c), 1, 0)
+    sums, counts = [], []
+    for xi, li in zip(xs, ls):
+        logits = torch.einsum("bsd,dv->bsv", xi, unembed).to(torch.float32)
+        logits = sctx.constrain(logits, ("act_batch", "act_seq", "act_vocab"))
+        lse = torch.logsumexp(logits, dim=-1)
+        mask = (li >= 0).to(torch.float32)
+        gold = torch.gather(logits, -1,
+                            torch.clamp(li, min=0)[..., None])[..., 0]
+        sums.append(torch.sum((lse - gold) * mask))
+        counts.append(torch.sum(mask))
+    return torch.stack(sums).sum() / torch.clamp(torch.stack(counts).sum(),
+                                                 min=1.0)
+
+
+def _forward_trunk(params, tokens, sctx: ShardingCtx, cfg: ArchConfig):
+    """Token trunk -> final hidden states (B, S, D) + aux losses (zero for
+    these families, which route nothing)."""
+    _check_family(cfg)
+    x = _embed_tokens(params, tokens, sctx, cfg)
+    aux = {"lb_loss": 0.0, "router_z": 0.0}
+    if cfg.family == "ssm":
+        def body_fn(p, x):
+            h, _, _ = ssm_apply(p["ssm"], rmsnorm(p["ln"], x, cfg.norm_eps),
+                                sctx, cfg)
+            return x + h
+        body_fn = _maybe_remat(body_fn, cfg)
+        for p in _layers(params["blocks"]):
+            x = body_fn(p, x)
+        return rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
+
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    _, _, keys = _hybrid_layout(cfg)
+
+    def rec_apply(p, x):
+        h, _ = rglru_apply(p["temporal"], rmsnorm(p["ln1"], x, cfg.norm_eps),
+                           sctx, cfg)
+        x = x + h
+        return x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps),
+                             sctx)
+
+    def group_fn(gp, x):
+        for key, kind in keys:
+            if kind == "rec":
+                x = rec_apply(gp[key], x)
+            else:
+                x, _ = block_apply(gp[key], x, sctx, cfg, positions=positions,
+                                   window=cfg.window)
+        return x
+    group_fn = _maybe_remat(group_fn, cfg)
+    for gp in _layers(params["groups"]):
+        x = group_fn(gp, x)
+    if "tail" in params:
+        tail_fn = _maybe_remat(rec_apply, cfg)
+        for p in _layers(params["tail"]):
+            x = tail_fn(p, x)
+    return rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
+
+
+def loss_fn(params, batch, sctx: ShardingCtx, cfg: ArchConfig):
+    """batch: ``{"tokens", "labels"}`` (B, S) integer -> (total loss,
+    {"ce", "lb_loss", "router_z"})."""
+    x, aux = _forward_trunk(params, batch["tokens"], sctx, cfg)
+    loss = ce_loss_chunked(x, params["unembed"], batch["labels"], sctx)
+    total = loss + 0.01 * aux["lb_loss"] + 1e-3 * aux["router_z"]
+    return total, {"ce": loss, **aux}
 
 
 # ===========================================================================
@@ -381,6 +484,12 @@ class Model(nn.Module):
 
     def init_cache(self, batch: int, seq: int) -> dict:
         return init_cache(self.cfg, batch, seq, device=self.device)
+
+    def loss(self, params, batch: dict, sctx: ShardingCtx | None = None):
+        """``loss_fn`` on the parameter tree ``params`` (not the module's
+        own, which stay as they are): the training path differentiates
+        it with respect to its own leaves."""
+        return loss_fn(params, batch, sctx or self.sctx, self.cfg)
 
     @torch.inference_mode()
     def prefill(self, batch: dict):

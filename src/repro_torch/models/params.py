@@ -37,11 +37,32 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_unflatten(tree, leaves) -> dict:
+    """``tree``'s nesting with ``leaves`` (in ``tree_leaves``' sorted-key
+    order) at its leaves."""
+    it = iter(leaves)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in sorted(node)}
+        return next(it)
+    return walk(tree)
+
+
 def tree_map(fn, tree):
     """``fn`` applied to every leaf of a nested dict."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def tree_zip_map(fn, tree, *rest):
+    """``fn`` applied to every leaf of ``tree`` and the matching leaves of
+    ``rest``, nested dicts of the same keys."""
+    if isinstance(tree, dict):
+        return {k: tree_zip_map(fn, v, *[r[k] for r in rest])
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def check_tree(spec_tree, tree, path: str = "") -> None:

@@ -1,0 +1,81 @@
+"""train_step / serve_step factories.
+
+Counterpart of ``repro.train.train_loop``.  ``make_train_step`` returns a
+function of (params, opt_state, batch, step) that builds and returns new
+trees and modifies none it is given, so ``runtime.with_retries`` can run
+it again after a failure.  Gradients come from ``torch.autograd.grad``
+over the parameter leaves; microbatches (``accum`` > 1) are a loop that
+sums fp32 gradients and divides by ``accum``, as JAX's ``lax.scan`` does.
+JAX's sharding helpers (``batch_shardings``, ``cache_shardings``,
+``train_step_shardings``) wait for the sharded backend (ROADMAP Queue 1
+items 3 and 5).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.model import decode_fn, prefill_fn
+from repro_torch.models.params import (tree_leaves, tree_map, tree_unflatten,
+                                      tree_zip_map)
+from repro_torch.sharding import ShardingCtx
+from .optimizer import AdamW, apply_updates
+
+
+def make_train_step(model, sctx: ShardingCtx, opt: AdamW, *, accum: int = 1):
+    """(params, opt_state, batch, step) -> (params, opt_state, metrics).
+
+    ``model`` is a ``repro_torch.models.Model`` (only its ``loss`` is
+    used: the parameters are the tree passed in).  ``batch`` holds
+    (B, S) ``tokens`` and ``labels``; ``accum`` splits B into that many
+    microbatches."""
+
+    def grads_of(params, batch):
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+        with torch.enable_grad():
+            loss, metrics = model.loss(tree_unflatten(params, leaves), batch,
+                                       sctx)
+            grads = torch.autograd.grad(loss, leaves)
+        metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
+                   for k, v in metrics.items()}
+        return loss.detach(), metrics, tree_unflatten(params, grads)
+
+    def train_step(params, opt_state, batch, step):
+        if accum > 1:
+            mbs = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])
+                   for k, v in batch.items()}
+            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                  device=p.device), params)
+            lsum = 0.0
+            for i in range(accum):
+                loss, _, g = grads_of(params, {k: v[i] for k, v in
+                                               mbs.items()})
+                gsum = tree_zip_map(lambda a, b: a + b.to(torch.float32),
+                                    gsum, g)
+                lsum = lsum + loss
+            grads = tree_map(lambda g: g / accum, gsum)
+            loss = lsum / accum
+            metrics = {}
+        else:
+            loss, metrics, grads = grads_of(params, batch)
+        with torch.no_grad():
+            deltas, opt_state, opt_metrics = opt.update(grads, opt_state,
+                                                        params, step)
+            params = apply_updates(params, deltas)
+        return params, opt_state, {"loss": loss, **metrics, **opt_metrics}
+
+    return train_step
+
+
+def make_prefill_step(model, sctx: ShardingCtx):
+    def prefill_step(params, batch):
+        with torch.inference_mode():
+            return prefill_fn(params, batch, sctx, model.cfg)
+    return prefill_step
+
+
+def make_decode_step(model, sctx: ShardingCtx):
+    def decode_step(params, cache, token, pos):
+        with torch.inference_mode():
+            return decode_fn(params, cache, token, pos, sctx, model.cfg)
+    return decode_step

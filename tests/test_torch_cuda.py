@@ -14,7 +14,10 @@ against the plain version in that route's order, and their autograd),
 mamba2-130m and recurrentgemma-9b at their smoke configs (the SSD layer on
 the card against its CPU run, one ``recur1`` launch an SSD or RG-LRU layer
 in a prefill, the hybrid model's log-probs against the CPU's across a
-wrapped ring).
+wrapped ring), and one fp32 train step of mamba2-130m at its smoke config
+(the loss within 1e-4 relative of the CPU's, every gradient leaf within
+1e-3 of its largest entry, and two ``recur1`` launches and one
+``recur1_rev`` a layer under remat).
 
 Every test here is marked ``cuda`` and needs a CUDA device; without one
 they skip.  The file imports torch, numpy and ``repro_torch`` only, so it
@@ -781,3 +784,53 @@ def test_hybrid_prefill_and_decode_on_card_match_cpu(cuda_device):
     for got, ref in ((logits, want), (step, want_step)):
         got = torch.log_softmax(got, -1).cpu()
         assert (got - torch.log_softmax(ref, -1)).abs().max().item() <= 1e-3
+
+
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """One fp32 train step at the ssm smoke config: on the card two
+    ``recur1`` launches a layer (the forward and its remat recompute) and
+    one ``recur1_rev`` (the adjoint), nothing else; its loss and grad
+    norm, and ``loss_fn``'s gradients, against the CPU's plain run on the
+    same weights and batch (the loss within 1e-4 relative, each gradient
+    leaf within 1e-3 of its largest entry, TF32 off)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.models.model import loss_fn
+    from repro_torch.models.params import tree_leaves, tree_map, tree_unflatten
+    from repro_torch.sharding import ShardingCtx
+    from repro_torch.train import AdamW, make_train_step
+    cfg = _ssm_smoke("float32")
+    assert cfg.remat
+    cpu = Model(cfg, device="cpu", seed=5)
+    params = {"cpu": cpu.params.tree()}
+    params["card"] = tree_map(lambda t: t.to(cuda_device), params["cpu"])
+    ds = SyntheticLM(vocab=cfg.vocab, seq_len=4 * cfg.ssm_chunk,
+                     global_batch=2, seed=2)
+    batches = {"cpu": ds.batch_at(0, device="cpu"),
+               "card": ds.batch_at(0, device=cuda_device)}
+    sctx = ShardingCtx.local()
+    opt = AdamW(lr=lambda s: 1e-3)
+    step_fn = make_train_step(cpu, sctx, opt)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out, grads = {}, {}
+    try:
+        for where in ("card", "cpu"):
+            p = params[where]
+            ops.reset_launches()
+            out[where] = step_fn(p, opt.init(p), batches[where], 0)[2]
+            if where == "card":
+                torch.cuda.synchronize()
+                assert ops.LAUNCHES == {"recur1": 2 * cfg.n_layers,
+                                        "recur1_rev": cfg.n_layers}
+            leaves = [t.detach().requires_grad_() for t in tree_leaves(p)]
+            loss, _ = loss_fn(tree_unflatten(p, leaves), batches[where],
+                              sctx, cfg)
+            grads[where] = torch.autograd.grad(loss, leaves)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    for key in ("loss", "grad_norm"):
+        want = float(out["cpu"][key])
+        assert abs(float(out["card"][key]) - want) <= 1e-4 * abs(want)
+    for got, want in zip(grads["card"], grads["cpu"]):
+        assert _rel(got, want) <= 1e-3

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.models import Model, build_model
 from repro_torch.solver import BandedSystem
 
@@ -33,10 +33,12 @@ print(len(names), ",".join(subpackages), ",".join(leaked))
 """
 
 # every subpackage of the port, and its modules: the ten configs, the model
-# layers, the serving driver and the sharding rules among them
-SUBPACKAGES = ["configs", "convert", "core", "kernels", "launch", "models",
-               "pde", "sharding", "solver"]
-MODULES = 48
+# layers, the serving and training drivers, the sharding rules, the data,
+# optimizer, checkpoint and fault-tolerance modules among them
+SUBPACKAGES = ["ckpt", "configs", "convert", "core", "data", "kernels",
+               "launch", "models", "pde", "runtime", "sharding", "solver",
+               "train"]
+MODULES = 58
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
@@ -63,14 +65,17 @@ def test_entry_points_default_to_cuda(kind):
     assert ctor(*diags, n=8, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("entry", ("build_model", "Model", "serve"))
-def test_model_entry_points_default_to_cuda(entry):
+@pytest.mark.parametrize("entry", ("build_model", "Model", "serve", "train"))
+def test_model_entry_points_default_to_cuda(entry, tmp_path):
     cfg = get_smoke_config("mamba2-130m")
     make = {"build_model": lambda **kw: build_model(cfg, **kw),
             "Model": lambda **kw: Model(cfg, **kw),
             "serve": lambda **kw: serve.serve(
                 cfg, requests=1, batch=1, prompt_len=16, gen=2,
-                log=lambda _: None, **kw)["cache"]["state"]}[entry]
+                log=lambda _: None, **kw)["cache"]["state"],
+            "train": lambda **kw: train.train(
+                cfg, steps=1, batch=1, seq=16, ckpt_dir=str(tmp_path / "run"),
+                log=lambda _: None, **kw)["params"]["embed"]}[entry]
 
     def device(obj):
         return obj.device.type
@@ -91,3 +96,13 @@ def test_serve_main_defaults_to_cuda():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             serve.main(argv)
+
+
+def test_train_main_defaults_to_cuda(tmp_path):
+    argv = ["--arch", "mamba2-130m", "--smoke", "--steps", "1", "--batch",
+            "1", "--seq", "16", "--ckpt-dir", str(tmp_path / "run")]
+    if torch.cuda.is_available():
+        assert train.main(argv) == 0
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            train.main(argv)
