@@ -38,7 +38,19 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
      with ``backend="auto"``, solve, and the adjoint through
      ``loss.backward()``), with the launch counts read around each case and
      the residual ``‖A x − d‖ / ‖d‖`` checked: shared-LHS cases (a)–(c)
-     and per-system-LHS (batch) cases (d)–(e);
+     and per-system-LHS (batch) cases (d)–(e); then (r), phase
+     ``sharded``: ``factorize(system, backend="sharded")`` with its ranks
+     as child processes (``chip_smoke.py --sharded-rank``, after the
+     kernels are built), (r1) two gloo ranks sharing the one card and (r2)
+     one NCCL rank, each solving (a)'s periodic shared system (512 × 2^20)
+     and (d)'s Dirichlet batch at a ragged M = 2^20 + 3 on a DTensor rhs
+     sharded over M, with the backward; exactly one forward and one
+     adjoint launch a rank a case; each rank's x and rhs gradient bit for
+     bit the single-process ``cuda`` backend's columns, the diagonals'
+     gradient (one all-reduce) within 1e-5 of its, residuals within 1e-4;
+     each rank's kernel ms (contended when ranks share the card) beside
+     the single-process kernel's at the whole M, its peak memory and its
+     factor's bytes;
   5. the recurrences and the PDE steps through their public entry points,
      each with its launch counts: (f) the RG-LRU scan at recurrentgemma-9b's
      width, (g) the SSD inter-chunk scan at mamba2-130m's, (h) an order-2
@@ -820,6 +832,291 @@ def phase_main_path() -> dict:
         del x, rhs, fact
         torch.cuda.empty_cache()
     return results
+
+
+# ---------------------------------------------------------------------------
+# (r) the sharded backend: ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+SHARDED_N = 512
+# (a)'s shape, and (d)'s with a ragged M (shards of 524,290 and 524,289)
+SHARDED_M = {"a": 1 << 20, "d": (1 << 20) + 3}
+# the launches each rank must show for its solve + backward
+_SHARDED_LAUNCHES = {"a": {"thomas_constant": 1, "thomas_constant_t": 1},
+                     "d": {"thomas_batch": 2}}
+# (run, ranks, process-group backend): two gloo ranks time-slice the card
+# (two processes on one device rule NCCL out); one NCCL rank is the
+# production backend on the same code
+SHARDED_RUNS = (("r1", 2, "cpu:gloo,cuda:gloo"), ("r2", 1, "nccl"))
+SHARDED_DIR = ROOT / "build" / "sharded"
+
+
+def sharded_system(key: str):
+    """(a)'s periodic CN diffusion LHS (σ = 0.4) or (d)'s Dirichlet batch
+    of it, diagonals requiring grad."""
+    import torch
+    from repro_torch.solver import BandedSystem
+    s = 0.4
+    diags = [torch.full((SHARDED_N,), v, device="cuda", requires_grad=True)
+             for v in (-s, 1 + 2 * s, -s)]
+    if key == "a":
+        return BandedSystem.tridiag(*diags, n=SHARDED_N, periodic=True,
+                                    mode="constant", device="cuda")
+    return BandedSystem.tridiag(*diags, n=SHARDED_N, periodic=False,
+                                mode="batch", batch=SHARDED_M[key],
+                                device="cuda")
+
+
+def _stored_bytes(stored) -> int:
+    from repro_torch.solver.plan import _tensors
+    return sum(t.numel() * t.element_size() for t in _tensors(
+        {k: v.to_local() for k, v in stored.items()}
+        if isinstance(stored, dict) else stored))
+
+
+def sharded_case(key: str, card: str) -> dict:
+    """One case on this rank: factorize with ``backend="sharded"``, solve a
+    DTensor rhs sharded ``Shard(1)``, backward, counts read around it; then
+    the single-process ``cuda`` backend on the whole M in this process,
+    held bit for bit (x and the rhs's gradient, this rank's columns) and
+    within 1e-5 (the diagonals' gradient, summed over the ranks by the one
+    all-reduce); then the rank's kernel and the single-process one timed
+    (contended when ranks share the card)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.core import dense_tridiag
+    from repro_torch.kernels import engine, ops
+    from repro_torch.solver import factorize, solve
+    from repro_torch.solver.sharded import lane_range
+
+    n, m = SHARDED_N, SHARDED_M[key]
+    system = sharded_system(key)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    full = torch.randn(n, m, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    fact = factorize(system, backend="sharded")
+    mesh = fact.meta.opt("mesh")
+    rhs = distribute_tensor(full, mesh.device_mesh,
+                            mesh.placements((None, "batch")),
+                            src_data_rank=None).requires_grad_()
+    x = solve(fact, rhs)
+    (x.to_local() ** 2).sum().backward()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == _SHARDED_LAUNCHES[key],
+          f"(r) case {key}: launches {launches}, expected "
+          f"{_SHARDED_LAUNCHES[key]}")
+    lo, hi = lane_range(m, mesh, "batch")
+    x_local = x.to_local().detach()
+    lam_local = rhs.grad.to_local()
+    grads = [d.grad.clone() for d in system.diagonals]
+    d_local = full[:, lo:hi]
+    with torch.no_grad():
+        resid = (torch.linalg.vector_norm(banded_matvec(system, x_local)
+                                          - d_local)
+                 / torch.linalg.vector_norm(d_local)).item()
+    check(torch.isfinite(x_local).all().item() and
+          x_local.shape == (n, hi - lo) and tuple(x.shape) == (n, m),
+          f"(r) case {key}: x is not finite of shape {(n, hi - lo)}")
+    check(resid <= 1e-4, f"(r) case {key}: residual {resid:.3e} > 1e-4")
+    factor_bytes = _stored_bytes(fact.stored)
+    local_stored = (fact.stored if key == "a" else
+                    [v.to_local() for v in fact.stored.values()])
+    del x, rhs
+    # the single-process cuda backend on the whole M, in this process
+    for d in system.diagonals:
+        d.grad = None
+    single = factorize(system, backend="cuda")
+    rhs1 = full.clone().requires_grad_()
+    x1 = solve(single, rhs1)
+    (x1 ** 2).sum().backward()
+    x_bitwise = torch.equal(x_local, x1[:, lo:hi].detach())
+    lam_bitwise = torch.equal(lam_local, rhs1.grad[:, lo:hi])
+    grad_err = max(rel_err(g, d.grad) for g, d in zip(grads,
+                                                       system.diagonals))
+    check(x_bitwise, f"(r) case {key}: this rank's x differs from the "
+                     "single-process cuda backend's columns")
+    check(lam_bitwise, f"(r) case {key}: this rank's rhs gradient differs "
+                       "from the single-process cuda backend's columns")
+    check(grad_err <= 1e-5, f"(r) case {key}: diagonal gradient vs the "
+                            f"single-process one {grad_err:.3e} > 1e-5")
+    del x1, rhs1, lam_local
+    torch.cuda.empty_cache()
+    # the kernel on this rank's columns and on the whole M, by events
+    local = d_local.contiguous()
+    if key == "a":
+        spec = engine.find_spec(3, "constant")
+        route = ops.shared_route(n, torch.float32)
+
+        def kernel(r):
+            return ops.thomas_constant(local_stored.factor, r)
+
+        def kernel_full():
+            return ops.thomas_constant(single.stored.factor, full)
+
+        lhs, _, eps = sweep_operands(spec, local_stored.factor, local[:, :1],
+                                     torch.float32)
+
+        def plain():
+            return ops.shared_sweep_plain(spec, lhs, local, eps,
+                                          blocks=route.row_blocks,
+                                          chunks=route.chunks)
+    else:
+        spec = engine.find_spec(3, "batch")
+        route = ops.batch_route(n, torch.float32, 3)
+
+        def kernel(r):
+            return ops.thomas_batch(*local_stored, r)
+
+        def kernel_full():
+            return ops.thomas_batch(*single.stored.values(), full)
+
+        def plain():
+            return ops.batch_sweep_plain(spec, local_stored, local,
+                                         chunks=route.chunks)
+    want = plain()
+    max_abs_err = (kernel(local) - want).abs().max().item()
+    check(max_abs_err <= 1e-5 * want.abs().max().item(),
+          f"(r) case {key}: kernel vs plain max|Δ| {max_abs_err:.3e}")
+    del want
+    dist.barrier()
+    rank_stats = kernel_stats(lambda: kernel(local))
+    dist.barrier()
+    single_stats = kernel_stats(kernel_full)
+    plain_ms = event_ms(plain, reps=3, warmup=1)
+    library_ms = None
+    if key == "a":
+        # yardstick only: one PyTorch call on the same dense system
+        dense = dense_tridiag(*(d.detach() for d in system.diagonals),
+                              periodic=True)
+        lu, piv = torch.linalg.lu_factor(dense)
+        library_ms = event_ms(lambda: torch.linalg.lu_solve(lu, piv, local),
+                              reps=5, warmup=1)
+        del lu, piv, dense
+    bound_ms, bound_by = bound(spec, n, hi - lo, card)
+    row = {"case": key, "n": n, "m": m, "lo": lo, "hi": hi,
+           "launches": launches, "seconds": seconds, "residual": resid,
+           "x_bitwise": x_bitwise, "rhs_grad_bitwise": lam_bitwise,
+           "diag_grad_rel_err": grad_err, "max_abs_err": max_abs_err,
+           "rank_ms": rank_stats["ms"], "rank_ms_q1": rank_stats["ms_q1"],
+           "rank_ms_q3": rank_stats["ms_q3"],
+           "single_ms": single_stats["ms"],
+           "single_ms_q1": single_stats["ms_q1"],
+           "single_ms_q3": single_stats["ms_q3"],
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "peak_device_bytes": peak, "factor_bytes": factor_bytes,
+           "sweep_route": dataclasses.asdict(route)}
+    del local_stored, single, full, d_local, local
+    torch.cuda.empty_cache()
+    return row
+
+
+def sharded_rank_main(args) -> int:
+    """A rank of phase ``sharded``: join the group, run (a) and (d), write
+    this rank's rows to ``<dir>/rank<r>.json``.  Never prints the
+    contract's lines."""
+    import torch
+    import torch.distributed as dist
+    out = Path(args.sharded_dir)
+    dist.init_process_group(args.sharded_backend,
+                            init_method=f"file://{out / 'pg_init'}",
+                            rank=args.sharded_rank,
+                            world_size=args.sharded_world)
+    try:
+        card = torch.cuda.get_device_name(0)
+        rows = [sharded_case(key, card) for key in SHARDED_M]
+        device = str(torch.device("cuda", torch.cuda.current_device()))
+    finally:
+        dist.destroy_process_group()
+    (out / f"rank{args.sharded_rank}.json").write_text(json.dumps(
+        {"rank": args.sharded_rank, "device": device, "rows": rows}))
+    return 0
+
+
+def _sharded_kernel_row(run: str, world: int, res: dict, row: dict) -> dict:
+    key = row["case"]
+    kind = ("shared_sweep/thomas_constant" if key == "a"
+            else "batch_sweep/thomas_batch")
+    return {
+        "name": f"{kind}/N{row['n']}xM{row['hi'] - row['lo']}/({run}) rank "
+                f"{res['rank']} of {world}",
+        "route": "cuda",
+        "source": ("src/repro_torch/kernels/csrc/shared_sweep.cu"
+                   if key == "a" else
+                   "src/repro_torch/kernels/csrc/batch_sweep.cu"),
+        "replaces": ("src/repro/kernels/engine.py:760" if key == "a"
+                     else "src/repro/kernels/engine.py:947"),
+        "launches": sum(row["launches"].values()),
+        "max_abs_err": row["max_abs_err"],
+        "ms": row["rank_ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+        "case": f"{run}/{key}", "single_ms": row["single_ms"],
+        "contended": world > 1,
+    }
+
+
+def phase_sharded(card: str) -> list:
+    """(r): the sharded backend with its ranks as child processes of this
+    one, each running ``chip_smoke.py --sharded-rank``: (r1) two gloo ranks
+    on the one card, (r2) one NCCL rank.  Any rank that fails or exits
+    non-zero fails the phase.  Returns the kernel rows."""
+    import shutil
+    import os
+    import torch
+    torch.cuda.empty_cache()
+    kernel_rows = []
+    t0 = time.perf_counter()
+    for run, world, backend in SHARDED_RUNS:
+        shutil.rmtree(SHARDED_DIR, ignore_errors=True)
+        SHARDED_DIR.mkdir(parents=True)
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--sharded-rank",
+             str(r), "--sharded-world", str(world), "--sharded-backend",
+             backend, "--sharded-dir", str(SHARDED_DIR)],
+            env=dict(os.environ, LOCAL_RANK=str(r)), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(world)]
+        logs = []
+        try:
+            for proc in procs:
+                logs.append(proc.communicate(timeout=300)[0])
+        except subprocess.TimeoutExpired:
+            logs.append("timed out after 300 s")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        failed = [i for i, proc in enumerate(procs) if proc.returncode != 0]
+        check(not failed, f"(r) {run}: ranks {failed} failed:\n"
+                          + "\n".join(log[-3000:] for log in logs))
+        emit({"phase": "sharded", "run": run, "ranks": world,
+              "backend": backend,
+              "collective": "one all_reduce a backward (the (3, N) diagonal "
+                            "gradient sums) on the CUDA tensors as they are, "
+                            "through this backend: no host copy in the port"})
+        for r in range(world):
+            res = json.loads((SHARDED_DIR / f"rank{r}.json").read_text())
+            for row in res["rows"]:
+                emit({"phase": "sharded", "run": run, "ranks": world,
+                      "backend": backend, "rank": r,
+                      "device": res["device"],
+                      "seconds_so_far": time.perf_counter() - t0,
+                      "timing": ("contended: the ranks time-slice one card; "
+                                 "not a scaling figure") if world > 1
+                      else "one rank alone on the card",
+                      **row})
+                kernel_rows.append(_sharded_kernel_row(run, world, res, row))
+    shutil.rmtree(SHARDED_DIR, ignore_errors=True)
+    return kernel_rows
 
 
 # ---------------------------------------------------------------------------
@@ -2660,6 +2957,11 @@ def main(argv=None) -> int:
                              "grid instead of the phases")
     parser.add_argument("--out", default="build/recurrence_routes.json",
                         help="where --routes writes its rows")
+    # a rank of phase ``sharded``, started by that phase
+    parser.add_argument("--sharded-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--sharded-world", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--sharded-backend", help=argparse.SUPPRESS)
+    parser.add_argument("--sharded-dir", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     try:
         import torch
@@ -2676,6 +2978,13 @@ def main(argv=None) -> int:
               "the root of a checkout", file=sys.stderr)
         return 1
     sys.path.insert(0, str(src))
+    if args.sharded_rank is not None:
+        try:
+            return sharded_rank_main(args)
+        except SmokeFailure as exc:
+            print(f"chip_smoke: rank {args.sharded_rank}: FAIL: {exc}",
+                  file=sys.stderr)
+            return 1
     start = time.perf_counter()
 
     try:
@@ -2712,9 +3021,10 @@ def main(argv=None) -> int:
             return 0
         phase_kernel_vs_plain()
         main = phase_main_path()
+        sharded_rows = phase_sharded(card)
         main.update(phase_recurrences())
         main.update(phase_pde())
-        kernels = phase_times(main, card, ptxas)
+        kernels = phase_times(main, card, ptxas) + sharded_rows
         peak = torch.cuda.max_memory_allocated()
         peaks = [peak]
         for phase in (phase_serve, phase_serve_hybrid):

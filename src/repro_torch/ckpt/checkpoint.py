@@ -13,6 +13,9 @@ other's checkpoints.  Layout: ``<dir>/step_<N>/manifest.json`` + one
     as its raw 16 bits (numpy void ``V2``) with the manifest dtype
     ``"bfloat16"``: what JAX's files hold.  ``restore`` views those bits
     as ``torch.bfloat16``.
+  * ``restore(..., shardings=)`` lays each leaf out on its
+    ``NamedSharding`` (the elastic re-shard path): every rank reads the
+    full leaf and keeps its own shard, a DTensor.
   * ``AsyncWriter`` overlaps serialization with training.
 """
 
@@ -27,6 +30,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.sharding import place_tree
 
 _SEP = "/"
 _BF16 = "bfloat16"
@@ -137,10 +142,13 @@ def latest_step(directory: str) -> int | None:
     return best
 
 
-def restore(directory: str, step: int | None = None, *, device=None):
+def restore(directory: str, step: int | None = None, *, device=None,
+            shardings=None):
     """Load a checkpoint as (tree of tensors, step): the latest committed
     one unless ``step`` is given.  Leaves are CPU tensors (0-d for
-    scalars), moved to ``device`` when one is given."""
+    scalars), moved to ``device`` when one is given, then laid out on
+    ``shardings`` (a tree of ``NamedSharding`` matching the saved one;
+    ``None`` leaves stay as they are) when those are given."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -153,7 +161,10 @@ def restore(directory: str, step: int | None = None, *, device=None):
         leaf = _to_tensor(np.load(os.path.join(path, meta["file"])),
                           meta["dtype"])
         flat[key] = leaf if device is None else leaf.to(device)
-    return _unflatten(flat), manifest["step"]
+    tree = _unflatten(flat)
+    if shardings is not None:
+        tree = place_tree(tree, shardings)
+    return tree, manifest["step"]
 
 
 def _snapshot(tree):

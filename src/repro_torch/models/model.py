@@ -479,6 +479,9 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.params.embed.device
 
+    def param_specs(self) -> dict:
+        return param_specs(self.cfg)
+
     def cache_specs(self, batch: int, seq: int) -> dict:
         return cache_specs(self.cfg, batch, seq)
 

@@ -1,13 +1,19 @@
-"""Logical-axis sharding rules and the one-device sharding context
+"""Logical-axis sharding rules, meshes and their DTensor placements
 (counterpart of ``repro.sharding``)."""
 
 from .logical import (
     DEFAULT_RULES,
     LogicalRules,
     Mesh,
+    NamedSharding,
     ShardingCtx,
+    place,
+    place_tree,
+    ranked_mesh,
+    replicated,
     resolve_spec,
 )
 
-__all__ = ["DEFAULT_RULES", "LogicalRules", "Mesh", "ShardingCtx",
-           "resolve_spec"]
+__all__ = ["DEFAULT_RULES", "LogicalRules", "Mesh", "NamedSharding",
+           "ShardingCtx", "place", "place_tree", "ranked_mesh",
+           "replicated", "resolve_spec"]

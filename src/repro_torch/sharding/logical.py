@@ -7,19 +7,29 @@ first candidate whose mesh axes (a) all exist in the mesh, (b) are not
 already used by another dim of the same tensor, and (c) divide the
 dimension size evenly.  Unresolvable dims stay replicated.
 
-A mesh here is its axis names and sizes (``Mesh``); ``resolve_spec``
-returns a tuple with one entry a dim — a mesh-axis name, a tuple of names
-for a group, or ``None`` — where JAX returns a ``PartitionSpec``.  The
-port runs on one device: ``ShardingCtx.constrain`` is the identity on a
-one-device mesh and refuses a larger one, since no multi-device backend
-is ported yet.
+A mesh here is its axis names and sizes (``Mesh``), with the
+``torch.distributed`` ``DeviceMesh`` behind it when it spans ranks
+(``Mesh.from_device_mesh``); ``resolve_spec`` returns a tuple with one
+entry a dim — a mesh-axis name, a tuple of names for a group, or ``None``
+— where JAX returns a ``PartitionSpec``.  Where JAX has a
+``NamedSharding``, the port has the mesh and a DTensor placement list
+(``NamedSharding.placements``): ``Shard(d)`` on each mesh dim that tensor
+dim d takes, ``Replicate()`` on the others; a group such as
+``("pod", "data")`` is ``Shard(d)`` on both.  ``ShardingCtx.constrain`` is
+``with_sharding_constraint``: the identity on a one-device mesh, else a
+DTensor redistributed (or a plain tensor distributed, taken as the same
+on every rank) to the resolved placements.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Mapping, Sequence
+from typing import Any, Mapping, Sequence
+
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
 
 AxisGroup = tuple[str, ...]
 
@@ -65,10 +75,14 @@ DEFAULT_RULES: dict[str, list] = {
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A device mesh by its axis names and sizes (no devices attached)."""
+    """A device mesh by its axis names and sizes, and the ``DeviceMesh``
+    of ranks behind it (``None``: names and sizes only, which resolve
+    specs but place nothing on more than one device)."""
 
     axis_names: tuple
     shape: tuple
+    device_mesh: DeviceMesh | None = dataclasses.field(default=None,
+                                                       compare=False)
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.shape):
@@ -80,6 +94,14 @@ class Mesh:
         """The one-device mesh with every axis of size 1."""
         return cls(tuple(axes), (1,) * len(axes))
 
+    @classmethod
+    def from_device_mesh(cls, device_mesh: DeviceMesh) -> "Mesh":
+        """The mesh of a named ``DeviceMesh``, which it keeps."""
+        if device_mesh.mesh_dim_names is None:
+            raise ValueError("the DeviceMesh needs mesh_dim_names")
+        return cls(tuple(device_mesh.mesh_dim_names),
+                   tuple(device_mesh.mesh.shape), device_mesh)
+
     @property
     def axis_sizes(self) -> dict:
         return dict(zip(self.axis_names, self.shape))
@@ -87,6 +109,83 @@ class Mesh:
     @property
     def size(self) -> int:
         return math.prod(self.shape)
+
+    def placements(self, spec: Sequence) -> tuple:
+        """The DTensor placements of a resolved spec: one a mesh dim,
+        ``Shard(d)`` where tensor dim d takes the mesh dim, else
+        ``Replicate()``.  A group shards its dim over its mesh dims in
+        mesh order (DTensor's nesting), so it must name them in that
+        order, as every rule does."""
+        out = [Replicate()] * len(self.axis_names)
+        for d, entry in enumerate(spec):
+            if entry is None:
+                continue
+            group = _as_group(entry)
+            dims = [self.axis_names.index(a) for a in group]
+            if dims != sorted(dims):
+                raise ValueError(f"axis group {group} is not in the mesh's "
+                                 f"order {self.axis_names}: a DTensor "
+                                 "shards one dim over mesh dims in order")
+            for i in dims:
+                out[i] = Shard(d)
+        return tuple(out)
+
+
+def ranked_mesh(mesh) -> Mesh:
+    """``mesh`` (a ``Mesh`` or a named ``DeviceMesh``) as a ``Mesh`` with
+    ranks behind it; a mesh of names and sizes only is refused."""
+    if isinstance(mesh, DeviceMesh):
+        mesh = Mesh.from_device_mesh(mesh)
+    if mesh.device_mesh is None:
+        raise ValueError("a mesh of names and sizes only has no ranks "
+                         "behind it: build it from a DeviceMesh "
+                         "(Mesh.from_device_mesh)")
+    return mesh
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """Counterpart of ``jax.sharding.NamedSharding``: a mesh and one
+    DTensor placement a mesh dim."""
+
+    mesh: Mesh
+    placements: tuple
+
+
+def replicated(mesh: Mesh) -> NamedSharding:
+    return NamedSharding(mesh, (Replicate(),) * len(mesh.axis_names))
+
+
+def place(x, sharding: NamedSharding):
+    """``x`` laid out as ``sharding`` says (``device_put``): a DTensor is
+    redistributed; a plain tensor, the same on every rank, is cut into
+    this rank's shard without communication.  The identity on a
+    one-device mesh."""
+    if sharding.mesh.size == 1:
+        return x
+    dm = ranked_mesh(sharding.mesh).device_mesh
+    if isinstance(x, DTensor):
+        return x.redistribute(dm, sharding.placements)
+    return distribute_tensor(x, dm, sharding.placements, src_data_rank=None)
+
+
+def place_tree(tree, shardings):
+    """``place`` on every leaf of a tree (nested dicts, tuples and lists)
+    against the matching leaf of ``shardings``; a ``None`` sharding leaves
+    its leaf as it is."""
+    if shardings is None:
+        return tree
+    if isinstance(tree, dict):
+        if not isinstance(shardings, dict) or set(tree) != set(shardings):
+            raise ValueError(f"tree keys {sorted(tree)} do not match the "
+                             "shardings' keys")
+        return {k: place_tree(tree[k], shardings[k]) for k in tree}
+    if isinstance(tree, (tuple, list)):
+        if len(tree) != len(shardings):
+            raise ValueError(f"a sequence of {len(tree)} leaves against "
+                             f"{len(shardings)} shardings")
+        return type(tree)(place_tree(t, s) for t, s in zip(tree, shardings))
+    return place(tree, shardings)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,13 +245,20 @@ class ShardingCtx:
     def spec(self, names: Sequence[str | None], shape: Sequence[int]) -> tuple:
         return resolve_spec(names, shape, self.mesh, self.rules)
 
+    def sharding(self, names: Sequence[str | None],
+                 shape: Sequence[int]) -> NamedSharding:
+        return NamedSharding(self.mesh,
+                             self.mesh.placements(self.spec(names, shape)))
+
     def constrain(self, x, names: Sequence[str | None]):
-        """The placement of ``x`` by logical names: the identity on a
-        one-device mesh (the names are still checked against x's rank)."""
-        self.spec(names, x.shape)
-        if self.mesh.size != 1:
-            raise NotImplementedError(
-                f"a {self.mesh.size}-device mesh: repro_torch runs on one "
-                "device; multi-device placement comes with the "
-                "torch.distributed backend (ROADMAP Queue 1)")
-        return x
+        """``with_sharding_constraint`` by logical names: the identity on
+        a one-device mesh (the names are still checked against x's
+        rank), else ``x`` placed on the resolved placements."""
+        return place(x, self.sharding(names, x.shape))
+
+    def tree_shardings(self, spec_tree) -> Any:
+        """Map a nested dict of ParamSpec-likes (objects with .shape and
+        .names) to NamedShardings."""
+        if isinstance(spec_tree, dict):
+            return {k: self.tree_shardings(v) for k, v in spec_tree.items()}
+        return self.sharding(spec_tree.names, spec_tree.shape)

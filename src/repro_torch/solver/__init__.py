@@ -17,8 +17,11 @@ Counterpart of ``repro.solver``, with the same names:
   * ``cuda``      — the hand-written Hopper kernels on CUDA tensors (the
     shared sweep, and the batch sweep for Dirichlet ``batch`` mode),
     their plain-torch versions on CPU tensors;
+  * ``sharded``   — M sharded over the ranks of a ``torch.distributed``
+    mesh, the factor replicated on each, every rank running ``cuda`` (or
+    ``reference``) on its own columns (``repro_torch.solver.sharded``);
   * ``auto``      — ``cuda`` for ``constant``, ``uniform`` and Dirichlet
-    ``batch``, ``reference`` for periodic ``batch``.
+    ``batch``, ``reference`` for periodic ``batch``; never ``sharded``.
 
 ``MODES`` is the tuple of storage-mode names.
 """
@@ -33,6 +36,7 @@ from .system import MODES, BandedSystem
 # importing the backend modules populates the registries
 from . import cuda as _cuda_backend            # noqa: F401,E402
 from . import reference as _reference_backend  # noqa: F401,E402
+from . import sharded as _sharded_backend      # noqa: F401,E402
 
 from .autodiff import solve                    # noqa: E402
 

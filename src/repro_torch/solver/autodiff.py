@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from .functional import Factorization, solve_impl, transpose_solve
+from .registry import get_pure_backend
 
 _OFFSETS = {3: (-1, 0, 1), 5: (-2, -1, 0, 1, 2)}
 
@@ -57,9 +58,11 @@ class _Solve(torch.autograd.Function):
         fact = ctx.fact
         lam = transpose_solve(fact, g.contiguous())
         needs_diag = ctx.needs_input_grad[2:]
-        cots = (diagonal_cotangents(fact.meta, lam, x) if any(needs_diag)
+        cotangents = (get_pure_backend(fact.meta.backend).cotangents
+                      or diagonal_cotangents)
+        cots = (cotangents(fact.meta, lam, x) if any(needs_diag)
                 else (None,) * len(needs_diag))
-        bars = tuple(c.to(d.dtype) if need else None
+        bars = tuple(c.to(device=d.device, dtype=d.dtype) if need else None
                      for c, d, need in zip(cots, fact.diagonals, needs_diag))
         return (None, lam if ctx.needs_input_grad[1] else None) + bars
 
@@ -69,5 +72,10 @@ def solve(factorization: Factorization, rhs: torch.Tensor) -> torch.Tensor:
 
     ``torch.autograd`` reaches ``rhs`` and the spec diagonals of
     ``factorization`` through one transposed solve on the same stored
-    factor."""
+    factor.  A backend that spans ranks lays ``rhs`` out first (its
+    ``place`` hook), so the gradient of ``rhs`` comes back in the layout
+    the caller gave."""
+    place = get_pure_backend(factorization.meta.backend).place
+    if place is not None:
+        rhs = place(factorization.meta, rhs)
     return _Solve.apply(factorization, rhs, *factorization.diagonals)

@@ -135,13 +135,15 @@ def factorize(system: BandedSystem, backend: str = "auto",
               **opts) -> Factorization:
     """Factor ``system`` once.
 
-    ``backend`` is ``reference`` (alias ``core``), ``cuda`` or
-    ``"auto"``.  Options, the union over backends, each ignored by the
-    backends it does not apply to (as in the JAX package): ``method``
-    (reference: ``"scan"``); ``storage_dtype`` (cuda: e.g. ``"bf16"``
-    stores factor and RHS at bf16 and computes in fp32).  The factor is
-    built without autograd history; gradients reach the diagonals
-    through ``solve``."""
+    ``backend`` is ``reference`` (alias ``core``), ``cuda``,
+    ``sharded`` (ranks of a ``torch.distributed`` process group) or
+    ``"auto"`` (never ``sharded``).  Options, the union over backends,
+    each ignored by the backends it does not apply to (as in the JAX
+    package): ``method`` (reference: ``"scan"``); ``storage_dtype``
+    (cuda: e.g. ``"bf16"`` stores factor and RHS at bf16 and computes in
+    fp32); ``mesh``, ``batch_axis`` and ``kernels`` (sharded).  The
+    factor is built without autograd history; gradients reach the
+    diagonals through ``solve``."""
     check_options(opts)
     backend = resolve_backend_name(system, backend)
     pure = get_pure_backend(backend)

@@ -11,6 +11,12 @@ Counterpart of ``repro.solver.registry``, with the same two surfaces:
        build(system, **opts) -> (stored, options)   # factor once
        solve(meta, stored, rhs) -> x
        transpose_solve(meta, stored, rhs) -> x      # adjoint, same stored
+
+   and two optional ones, for a backend whose solves span ranks:
+   ``place(meta, rhs) -> rhs`` lays the rhs out before the differentiable
+   solve (so its gradient comes back in the caller's layout), and
+   ``cotangents(meta, lam, x) -> tuple`` gives the diagonals' gradients
+   in place of ``autodiff.diagonal_cotangents``.
 """
 
 from __future__ import annotations
@@ -30,12 +36,16 @@ class PureBackend:
     build: Callable[..., tuple]          # (system, **opts) -> (stored, options)
     solve: Callable[..., Any]            # (meta, stored, rhs) -> x
     transpose_solve: Callable[..., Any]  # (meta, stored, rhs) -> x  (A^T x = rhs)
+    place: Callable[..., Any] | None = None       # (meta, rhs) -> rhs
+    cotangents: Callable[..., Any] | None = None  # (meta, lam, x) -> tuple
 
 
-def register_pure_backend(name: str, *, build, solve, transpose_solve):
+def register_pure_backend(name: str, *, build, solve, transpose_solve,
+                          place=None, cotangents=None):
     """Register the pure factor/solve/transpose functions for ``name``."""
     _PURE_REGISTRY[name] = PureBackend(name=name, build=build, solve=solve,
-                                       transpose_solve=transpose_solve)
+                                       transpose_solve=transpose_solve,
+                                       place=place, cotangents=cotangents)
     return _PURE_REGISTRY[name]
 
 

@@ -6,9 +6,10 @@ trees and modifies none it is given, so ``runtime.with_retries`` can run
 it again after a failure.  Gradients come from ``torch.autograd.grad``
 over the parameter leaves; microbatches (``accum`` > 1) are a loop that
 sums fp32 gradients and divides by ``accum``, as JAX's ``lax.scan`` does.
-JAX's sharding helpers (``batch_shardings``, ``cache_shardings``,
-``train_step_shardings``) wait for the sharded backend (ROADMAP Queue 1
-items 3 and 5).
+The sharding helpers (``batch_shardings``, ``cache_shardings``,
+``train_step_shardings``) give trees of ``NamedSharding`` (a mesh and its
+DTensor placements); ``repro_torch.sharding.place_tree`` lays a tree of
+tensors out on them.
 """
 
 from __future__ import annotations
@@ -20,6 +21,33 @@ from repro_torch.models.params import (tree_leaves, tree_map, tree_unflatten,
                                       tree_zip_map)
 from repro_torch.sharding import ShardingCtx
 from .optimizer import AdamW, apply_updates
+
+
+def batch_shardings(sctx: ShardingCtx, batch_specs: dict) -> dict:
+    """NamedShardings for a batch dict of tensors (or anything with a
+    ``shape``): the leading dim is the batch, the rest replicated."""
+    def one(s):
+        ndim = len(s.shape)
+        names = ("act_batch",) + (None,) * (ndim - 1) if ndim else ()
+        return sctx.sharding(names, tuple(s.shape))
+    return tree_map(one, batch_specs)
+
+
+def cache_shardings(sctx: ShardingCtx, cache_spec_tree):
+    return sctx.tree_shardings(cache_spec_tree)
+
+
+def train_step_shardings(model, sctx: ShardingCtx, opt: AdamW,
+                         batch_specs: dict) -> tuple:
+    """(in_shardings, out_shardings) of ``train_step``: the params', the
+    AdamW state's, the batch's and the step's placements; the metrics are
+    left unplaced (replicated scalars), as in JAX."""
+    pspecs = model.param_specs()
+    p_sh = sctx.tree_shardings(pspecs)
+    o_sh = sctx.tree_shardings(opt.state_specs(pspecs))
+    b_sh = batch_shardings(sctx, batch_specs)
+    step_sh = sctx.sharding((), ())
+    return (p_sh, o_sh, b_sh, step_sh), (p_sh, o_sh, None)
 
 
 def make_train_step(model, sctx: ShardingCtx, opt: AdamW, *, accum: int = 1):

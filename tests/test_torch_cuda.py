@@ -17,7 +17,9 @@ in a prefill, the hybrid model's log-probs against the CPU's across a
 wrapped ring), and one fp32 train step of mamba2-130m at its smoke config
 (the loss within 1e-4 relative of the CPU's, every gradient leaf within
 1e-3 of its largest entry, and two ``recur1`` launches and one
-``recur1_rev`` a layer under remat).
+``recur1_rev`` a layer under remat), and the ``sharded`` backend with two
+gloo ranks sharing the card (each rank's columns bit for bit the
+single-process backend's, one launch a solve).
 
 Every test here is marked ``cuda`` and needs a CUDA device; without one
 they skip.  The file imports torch, numpy and ``repro_torch`` only, so it
@@ -40,6 +42,10 @@ forced).  ``nvcc`` contracts
 from __future__ import annotations
 
 import dataclasses
+import multiprocessing as mp
+import os
+import traceback
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -834,3 +840,82 @@ def test_train_step_on_card_matches_cpu(cuda_device):
         assert abs(float(out["card"][key]) - want) <= 1e-4 * abs(want)
     for got, want in zip(grads["card"], grads["cpu"]):
         assert _rel(got, want) <= 1e-3
+
+
+# the sharded backend: two gloo ranks on the one card, M ragged over them
+SHARDED_RANKS, SHARDED_M = 2, 1001
+
+
+def _sharded_rank(rank: int, init_file: str, out_dir: str) -> None:
+    """Every (bandwidth, mode, boundary) on this rank: its launches and
+    whether its x equals the single-process backend's columns bitwise."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.solver.sharded import lane_range
+    os.environ["LOCAL_RANK"] = str(rank)
+    try:
+        dist.init_process_group("cpu:gloo,cuda:gloo",
+                                init_method=f"file://{init_file}", rank=rank,
+                                world_size=SHARDED_RANKS)
+        out = []
+        for bw, mode, periodic in [(bw, mode, periodic) for bw in (3, 5)
+                                   for mode in ("constant", "uniform",
+                                                "batch")
+                                   for periodic in (False, True)]:
+            diags = [torch.tensor(v, dtype=torch.float32)
+                     for v in _diags(bw, mode == "uniform")]
+            ctor = BandedSystem.tridiag if bw == 3 else BandedSystem.penta
+            system = ctor(*diags, n=N, periodic=periodic, mode=mode,
+                          batch=SHARDED_M if mode == "batch" else None,
+                          device="cuda")
+            gen = torch.Generator(device="cuda").manual_seed(bw)
+            full = torch.randn(N, SHARDED_M, generator=gen, device="cuda")
+            fact = factorize(system, backend="sharded")
+            mesh = fact.meta.opt("mesh")
+            rhs = distribute_tensor(full, mesh.device_mesh,
+                                    mesh.placements((None, "batch")),
+                                    src_data_rank=None)
+            ops.reset_launches()
+            x = solve(fact, rhs).to_local()
+            launches = sum(ops.LAUNCHES.values())
+            lo, hi = lane_range(SHARDED_M, mesh, "batch")
+            single = factorize(system, backend=fact.meta.opt("kernels"))
+            want = solve(single, full)[:, lo:hi]
+            out.append({"case": (bw, mode, periodic),
+                        "kernels": fact.meta.opt("kernels"),
+                        "launches": launches, "columns": hi - lo,
+                        "bitwise": torch.equal(x, want)})
+        torch.save(out, Path(out_dir, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+    except Exception:
+        Path(out_dir, f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def test_sharded_ranks_on_card_match_single_process(cuda_device, tmp_path):
+    """Two gloo ranks share the card (NCCL wants a card a rank): each
+    runs the kernel once a solve on its columns (periodic batch, which
+    has no kernel, on the reference sweeps) and equals the single-process
+    backend's columns bit for bit."""
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_sharded_rank,
+                         args=(r, str(tmp_path / "pg_init"), str(tmp_path)))
+             for r in range(SHARDED_RANKS)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(180)
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join(10)
+    errors = [f.read_text() for f in tmp_path.glob("rank*.err")]
+    assert not alive and all(p.exitcode == 0 for p in procs), errors
+    for r in range(SHARDED_RANKS):
+        for row in torch.load(tmp_path / f"rank{r}.pt"):
+            bw, mode, periodic = row["case"]
+            kernel = not (mode == "batch" and periodic)
+            assert row["kernels"] == ("cuda" if kernel else "reference")
+            assert row["launches"] == (1 if kernel else 0), row
+            assert row["columns"] == (501 if r == 0 else 500)
+            assert row["bitwise"], row

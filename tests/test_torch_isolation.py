@@ -34,11 +34,13 @@ print(len(names), ",".join(subpackages), ",".join(leaked))
 
 # every subpackage of the port, and its modules: the ten configs, the model
 # layers, the serving and training drivers, the sharding rules, the data,
-# optimizer, checkpoint and fault-tolerance modules among them
+# optimizer, checkpoint and fault-tolerance modules, and the multi-device
+# ones on torch.distributed (the sharded solver, the mesh builders, the
+# compressed mean, the pipeline and elastic restore) among them
 SUBPACKAGES = ["ckpt", "configs", "convert", "core", "data", "kernels",
                "launch", "models", "pde", "runtime", "sharding", "solver",
                "train"]
-MODULES = 58
+MODULES = 63
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():

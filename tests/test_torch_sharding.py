@@ -94,5 +94,6 @@ def test_one_device_ctx_is_the_identity_and_exposes_the_mesh():
 def test_multi_device_ctx_refuses_to_place():
     sctx = ShardingCtx(Mesh(("data", "model"), (2, 2)), RULES)
     assert sctx.spec(("act_batch", "act_heads"), (4, 8)) == ("data", "model")
-    with pytest.raises(NotImplementedError, match="one device"):
+    # names and sizes only: no ranks behind the mesh to place on
+    with pytest.raises(ValueError, match="no ranks behind it"):
         sctx.constrain(torch.ones(4, 8), ("act_batch", "act_heads"))
