@@ -120,7 +120,27 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
      prefill to 2080, across the wrap, against the prefill of each checked
      prefix with (m)'s bars.  The recurrence kernel's row at (n)'s operand
      (S 1984 × B 8 · 4096) gives its share of a prefill;
-  9. (p) training mamba2-130m at its published config (24 layers, bf16,
+  9. (s) serving granite-3-8b (the dense family) at its published config
+     (40 layers, d_model 4096, 32 heads, GQA kv 8, head_dim 128, d_ff
+     12800, vocab 49155, bf16): 16 requests in waves of 8, prompt 1024,
+     64 generated; (t) dbrx-132b (the moe family: 16 experts, top-4) at
+     full width, 4 layers, capacity factor 1.25: 8 requests, 1024 + 32;
+     (u) kimi-k2-1t-a32b (384 experts, top-8, a shared expert) at full
+     width, 1 layer: 8 requests, 1024 + 16.  Each through ``serve``, with
+     random weights from the seed and the counts read around it (these
+     families reach no solver kernel: no launch), the K/V caches' shape
+     and finite values checked, the serving numbers, one prefill timed
+     with CUDA events (its logits finite) and traced (the top device ops);
+     for (s) at 2 layers and (t) at 1, the fp32 prefill on the card
+     against the CPU's (log-probs within 1e-3; for (s), whose fp32
+     rounding alone moves them about that far, within twice the CPU's
+     own fp32 distance from its fp64 run, the two fp64 runs within 1e-9);
+     for (s) and (t) at 2 layers (capacity ``n_experts``), teacher-forced
+     decode over a 64-token prompt against the prefill (fp32 within the
+     JAX suite's 2e-2 / 5e-2 bars, bf16 within three times the bf16
+     prefill's own distance from fp32).  (u)'s fp32 copy does not fit on
+     either side; its parity is held on the CPU at the smoke config;
+ 10. (p) training mamba2-130m at its published config (24 layers, bf16,
      remat on, random weights from the seed) through
      ``repro_torch.launch.train.train``: 20 steps of B 8 × S 4096 (the
      ``train_4k`` length), lr 3e-3 after 5 warmup steps, a checkpoint every
@@ -139,7 +159,7 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
      kernel's rows at (p)'s operand (N 64 × M 1,572,864), forward and
      adjoint, give its share of a step; (q)'s (N 2048 × M 4096) are timed
      too;
- 10. one summary line (the run's seconds and peak device memory) and one
+ 11. one summary line (the run's seconds and peak device memory) and one
      ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -1772,6 +1792,282 @@ def phase_serve_hybrid(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# cases (s), (t), (u): serving the dense family (granite-3-8b) and the moe
+# family (dbrx-132b, kimi-k2-1t-a32b)
+# ---------------------------------------------------------------------------
+
+# Each case: (arch, the published widths its config must have, layers kept
+# (None: the published depth), requests, batch, prompt, generated, layers
+# of the fp32 card-vs-CPU prefill (None: no such check), whether that check
+# also runs both sides at fp64 (its bar then follows fp32's own rounding),
+# layers of the decode replay (None: no replay), prefill timings).
+# The replay keeps 2 layers: these random weights (JAX's init rule) put the
+# attention logits in the hundreds, so the softmax is nearly hard and each
+# layer multiplies a rounding difference about a hundredfold; past a few
+# layers decode and prefill part whatever the precision (granite-3-8b at
+# 40 layers: 10.4 times the bar at fp64, 16.9 at fp32).  The widths are
+# src/repro_torch/configs/*.py's, the same as src/repro/configs/.
+# granite-3-8b: 40 layers, d_model 4096, 32 heads (GQA kv 8, head_dim 128),
+# d_ff 12800, vocab 49155, rope θ 1e4; 8.4 G parameters, 16.7 GB at bf16.
+# dbrx-132b: 16 experts top-4, expert_d_ff 10752, d_model 6144, 48 heads
+# (kv 8), vocab 100352; one layer's experts 6.3 GB at bf16, so the depth is
+# cut to 4 (28.6 GB).  kimi-k2-1t-a32b: 384 experts top-8 and a shared
+# expert, expert_d_ff 2048, d_model 7168, 64 heads (kv 8, head_dim 112),
+# vocab 163840; one layer's experts 33.8 GB at bf16, so one layer; its fp32
+# copy (over 68 GB on each side) does not fit, so its parity is held on the
+# CPU at the smoke config (tests/test_torch_moe.py) and not here.
+DENSE_MOE_CASES = {
+    "s": dict(arch="granite-3-8b",
+              widths=dict(n_layers=40, d_model=4096, n_heads=32,
+                          n_kv_heads=8, hd=128, d_ff=12800, vocab=49155,
+                          rope_theta=1e4, dtype="bfloat16"),
+              layers=None, requests=16, batch=8, prompt=1024, gen=64,
+              parity_layers=2, oracle=True, replay_layers=2, reps=5),
+    "t": dict(arch="dbrx-132b",
+              widths=dict(d_model=6144, n_heads=48, n_kv_heads=8, hd=128,
+                          n_experts=16, top_k=4, expert_d_ff=10752,
+                          shared_expert=False, vocab=100352,
+                          capacity_factor=1.25, dtype="bfloat16"),
+              layers=4, requests=8, batch=8, prompt=1024, gen=32,
+              parity_layers=1, oracle=False, replay_layers=2, reps=3),
+    "u": dict(arch="kimi-k2-1t-a32b",
+              widths=dict(d_model=7168, n_heads=64, n_kv_heads=8, hd=112,
+                          n_experts=384, top_k=8, expert_d_ff=2048,
+                          shared_expert=True, vocab=163840,
+                          capacity_factor=1.25, dtype="bfloat16"),
+              layers=1, requests=8, batch=8, prompt=1024, gen=16,
+              parity_layers=None, oracle=False, replay_layers=None, reps=3),
+}
+# the dense card-vs-CPU prefill's shape; the JAX suite's replay bars
+# (tests/test_decode_equivalence.py): dense 2e-2, moe 5e-2
+DENSE_PARITY_BATCH, DENSE_PARITY_SEQ = 2, 128
+REPLAY_BARS = {"dense": 2e-2, "moe": 5e-2}
+
+
+def _fp64_prefill(model, tokens):
+    """``model``'s prefill logits with its parameters carried at fp64: the
+    layers then compute in fp64 throughout (``models.layers._acc``)."""
+    import torch
+    from repro_torch.models.model import prefill_fn
+    from repro_torch.models.params import tree_map
+    with torch.inference_mode():
+        return prefill_fn(tree_map(lambda t: t.double(), model.params.tree()),
+                          {"tokens": tokens}, model.sctx, model.cfg)[0]
+
+
+def _free_device() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve_dense_moe(key: str, card: str) -> dict:
+    """(s), (t), (u): ``repro_torch.launch.serve.serve`` at the case's
+    published widths (depth cut where ``layers`` says), random weights
+    from the seed, with the counts set to 0 just before it and read just
+    after: these families reach no solver kernel, so no launch and no
+    plain fallback.  The K/V caches' shape and finite values are checked.
+    Then one prefill of a wave's shape timed with CUDA events (its logits
+    finite) and traced with ``torch.profiler`` (the top device ops); the
+    fp32 prefill on the card against the CPU's on the same weights, at
+    full width and ``parity_layers`` (log-probs within 1e-3; with the
+    ``oracle``, within twice the CPU's own fp32 distance from its fp64
+    run, and the two fp64 runs within 1e-9); and
+    teacher-forced decode over a 64-token prompt against the prefill, at
+    full width and ``replay_layers`` (the moe family at capacity
+    ``n_experts``, as the JAX test sets it, since at 1.25 prefill and
+    decode drop different tokens): fp32 within the JAX suite's bar, bf16
+    within REPLAY_NOISE times the bf16 prefill's own distance from the
+    fp32 prefill.  Each model is freed before the next is built."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import Model, build_model
+    from repro_torch.models.params import tree_map
+
+    case = DENSE_MOE_CASES[key]
+    cfg = get_config(case["arch"])
+    got = {name: getattr(cfg, name) for name in case["widths"]}
+    check(got == case["widths"],
+          f"({key}) {case['arch']} is not at its published widths: {got}")
+    published = cfg.n_layers
+    if case["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=case["layers"])
+    t0 = time.perf_counter()
+    _free_device()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out = serve(cfg, requests=case["requests"], batch=case["batch"],
+                prompt_len=case["prompt"], gen=case["gen"], device="cuda",
+                seed=SEED, log=lambda line: print(line, flush=True))
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == {}, f"({key}) launches {launches}: the {cfg.family} "
+                          f"family reaches no solver kernel")
+    waves = out["waves"]
+    shape = (cfg.n_layers, case["batch"], cfg.n_kv_heads,
+             case["prompt"] + case["gen"], cfg.hd)
+    kv = [out["cache"][name] for name in ("k", "v")]
+    check(out["served"] == case["requests"]
+          and all(tuple(t.shape) == shape for t in kv)
+          and all(torch.isfinite(t).all().item() for t in kv),
+          f"({key}) the K/V caches are not finite of shape {shape}")
+    del out, kv
+    row = {"phase": "serve", "case": key, "arch": case["arch"],
+           "family": cfg.family, "card": card,
+           "reduced": ({"n_layers": [published, cfg.n_layers]}
+                       if case["layers"] else None),
+           "requests": case["requests"], "batch": case["batch"],
+           "prompt": case["prompt"], "gen": case["gen"],
+           "capacity_factor": cfg.capacity_factor if cfg.n_experts else None,
+           "launches": launches, "cache_shape": list(shape),
+           "prefill_ms": [w["prefill_s"] * 1e3 for w in waves],
+           "decode_ms_per_token": [w["decode_s"] * 1e3 / w["decode_steps"]
+                                   for w in waves],
+           "tokens_per_s": case["requests"] * case["gen"]
+           / sum(w["prefill_s"] + w["decode_s"] for w in waves),
+           "serve_seconds": time.perf_counter() - t0,
+           "peak_device_bytes": peak}
+
+    # one prefill of a wave's shape: CUDA events, then a profiler trace
+    _free_device()
+    model = build_model(cfg, device="cuda", seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    tokens = torch.randint(0, cfg.vocab, (case["batch"], case["prompt"]),
+                           generator=gen, device="cuda")
+    ops.reset_launches()
+    logits, _ = model.prefill({"tokens": tokens})
+    check(ops.LAUNCHES == {} and torch.isfinite(logits).all().item()
+          and tuple(logits.shape) == (case["batch"], cfg.vocab),
+          f"({key}) prefill logits not finite of shape (B, V), or launches "
+          f"{ops.LAUNCHES}")
+    del logits
+    times = event_times(lambda: model.prefill({"tokens": tokens}),
+                        reps=case["reps"], warmup=1)
+    q1, _, q3 = statistics.quantiles(times, n=4)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+    kernels = _device_kernels(prof)
+    top = sorted(_device_ops(prof).items(), key=lambda kv: -kv[1])[:8]
+    row.update({"prefill_event_ms": statistics.median(times),
+                "prefill_event_ms_q1": q1, "prefill_event_ms_q3": q3,
+                "prefill_event_reps": len(times),
+                "trace_kernels_ms": sum(kernels.values()),
+                "trace_top_ops_ms": [[name[:80], ms] for name, ms in top]})
+    del model, tokens, prof
+    _free_device()
+
+    if case["parity_layers"]:
+        # fp32 at full width: the card against the CPU on the same weights
+        cut32 = dataclasses.replace(cfg, n_layers=case["parity_layers"],
+                                    dtype="float32")
+        card32 = build_model(cut32, device="cuda", seed=SEED + 5)
+        cpu = Model(cut32, device="cpu",
+                    params=tree_map(lambda t: t.cpu(),
+                                    card32.params.tree()))
+        toks = torch.randint(0, cfg.vocab,
+                             (DENSE_PARITY_BATCH, DENSE_PARITY_SEQ),
+                             generator=torch.Generator().manual_seed(SEED + 5))
+        ops.reset_launches()
+        got = {"fp32": card32.prefill({"tokens": toks.cuda()})[0]}
+        if case["oracle"]:
+            got["fp64"] = _fp64_prefill(card32, toks.cuda())
+        torch.cuda.synchronize()
+        check(ops.LAUNCHES == {}, f"({key}) fp32 prefill launches "
+                                  f"{ops.LAUNCHES}")
+        del card32
+        _free_device()
+        want = {"fp32": cpu.prefill({"tokens": toks})[0]}
+        if case["oracle"]:
+            want["fp64"] = _fp64_prefill(cpu, toks)
+        del cpu
+        lp = {k: torch.log_softmax(v.double(), -1).cpu()
+              for k, v in [("card_" + k, v) for k, v in got.items()]
+              + [("cpu_" + k, v) for k, v in want.items()]}
+        lp_err = (lp["card_fp32"] - lp["cpu_fp32"]).abs().max().item()
+        bar = PARITY_TOL
+        row.update({"parity_layers": case["parity_layers"],
+                    "parity_shape": [DENSE_PARITY_BATCH, DENSE_PARITY_SEQ],
+                    "fp32_logprob_max_abs_err": lp_err})
+        if case["oracle"]:
+            # fp32 rounding alone moves these log-probs about 1e-3 (the
+            # attention logits of the random weights reach the hundreds,
+            # so the softmax is nearly hard): the card's fp32 is held to
+            # twice the CPU's own fp32 distance from its fp64 run, and the
+            # two fp64 runs, the same function at fp64, to 1e-9
+            fp64_err = (lp["card_fp64"] - lp["cpu_fp64"]).abs().max().item()
+            noise = (lp["cpu_fp32"] - lp["cpu_fp64"]).abs().max().item()
+            check(fp64_err <= 1e-9,
+                  f"({key}) fp64 prefill log-probs, card vs CPU, max|Δ| "
+                  f"{fp64_err:.3e}")
+            bar = max(PARITY_TOL, 2 * noise)
+            row.update({"fp64_logprob_max_abs_err": fp64_err,
+                        "cpu_fp32_from_fp64": noise,
+                        "card_fp32_from_fp64": (lp["card_fp32"]
+                                                - lp["cpu_fp64"]).abs().max()
+                        .item()})
+        row["fp32_logprob_bar"] = bar
+        check(lp_err <= bar,
+              f"({key}) fp32 prefill log-probs, card vs CPU, max|Δ| "
+              f"{lp_err:.3e} > {bar:.3e}")
+    else:
+        row["parity"] = ("none on the card: an fp32 copy of one layer "
+                         "needs over 68 GB on each side; held on the CPU "
+                         "at the smoke config (tests/test_torch_moe.py)")
+
+    if case["replay_layers"]:
+        # teacher-forced decode against prefill, bf16 and its fp32 twin
+        rcfg = dataclasses.replace(cfg, n_layers=case["replay_layers"])
+        if rcfg.n_experts:
+            rcfg = dataclasses.replace(
+                rcfg, capacity_factor=float(rcfg.n_experts))
+        model = build_model(rcfg, device="cuda", seed=SEED + 6)
+        model32 = Model(dataclasses.replace(rcfg, dtype="float32"),
+                        device="cuda",
+                        params=tree_map(lambda t: t.float(),
+                                        model.params.tree()))
+        toks = torch.randint(0, cfg.vocab, (REPLAY_BATCH, REPLAY_SEQ),
+                             generator=gen, device="cuda")
+        ops.reset_launches()
+        a16, b16 = _replay(model, toks)
+        a32, b32 = _replay(model32, toks)
+        check(ops.LAUNCHES == {}, f"({key}) replay launches {ops.LAUNCHES}")
+        del model, model32
+        _free_device()
+        bar = REPLAY_BARS[cfg.family]
+        fp32_replay = _allclose(a32, b32, rtol=bar, atol=10 * bar)
+        bf16_from_fp32 = (a16 - b32).abs().max().item()
+        bf16_noise = (b16 - b32).abs().max().item()
+        check(fp32_replay <= 1.0,
+              f"({key}) fp32 decode replay vs prefill {fp32_replay:.3f} of "
+              f"the bar")
+        check(torch.isfinite(a16).all().item()
+              and bf16_from_fp32 <= REPLAY_NOISE * bf16_noise,
+              f"({key}) bf16 decode {bf16_from_fp32:.3e} from the fp32 "
+              f"prefill, the bf16 prefill {bf16_noise:.3e}")
+        row.update({"replay_layers": rcfg.n_layers,
+                    "replay_capacity_factor": (rcfg.capacity_factor
+                                               if rcfg.n_experts else None),
+                    "replay_bar": bar,
+                    "fp32_replay_max_abs_err": (a32 - b32).abs().max()
+                    .item(),
+                    "fp32_replay_worst_of_bar": fp32_replay,
+                    "bf16_replay_max_abs_err": (a16 - b16).abs().max()
+                    .item(),
+                    "bf16_decode_from_fp32_prefill": bf16_from_fp32,
+                    "bf16_prefill_from_fp32_prefill": bf16_noise})
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    return row
+
+
+# ---------------------------------------------------------------------------
 # cases (p), (p'), (q): training
 # ---------------------------------------------------------------------------
 
@@ -3031,6 +3327,9 @@ def main(argv=None) -> int:
             served = phase(card)
             kernels.append(serve_recurrence_row(served, card, ptxas))
             peaks.append(served["peak_device_bytes"])
+        for key in DENSE_MOE_CASES:
+            peaks.append(phase_serve_dense_moe(key, card)
+                         ["peak_device_bytes"])
         trained = phase_train(card)
         kernels += train_recurrence_rows(trained, card, ptxas)
         peaks += [trained["peak_device_bytes"],

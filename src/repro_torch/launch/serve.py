@@ -6,13 +6,14 @@ prefill; greedy decode of ``--gen`` tokens; the same two ``[serve]``
 lines), plus ``--device`` (default ``cuda``; raises without a card unless
 ``--device cpu``) and ``--seed`` (weights and prompts):
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \\
         --smoke --device cpu --requests 4 --batch 2 --prompt-len 32 --gen 8
 
 The prefill cache is grown to the serving budget (``--max-len``) only
-along the axes its spec names a sequence axis (``act_kv_seq``); the ssm
-state and conv tails have none, whatever their sizes.  A local-attention
+along the axes its spec names a sequence axis (``act_kv_seq``): the dense
+and moe families' K/V caches; the ssm state and conv tails have none,
+whatever their sizes.  A local-attention
 cache (``cfg.window`` > 0) is a ring: it grows only to
 ``min(window, max_len)``, and one that already holds ``window`` slots
 stays as it is.
@@ -113,7 +114,7 @@ def serve(cfg, *, requests: int = 12, batch: int = 4, prompt_len: int = 32,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mamba2-130m")
+    ap.add_argument("--arch", default="granite-3-8b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--batch", type=int, default=4)

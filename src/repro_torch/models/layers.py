@@ -2,10 +2,12 @@
 (flash-style) attention, GQA/MQA attention with KV caches, SwiGLU MLP.
 
 Counterpart of ``repro.models.layers``, under the JAX names.  All attention
-math accumulates in fp32 whatever the activation dtype.  ``flash_attention``
-is JAX's blockwise oracle as loops over q and kv chunks: the same chunks
-(``_pick_chunk``), masks, ``NEG_INF`` fill and fp32 online softmax, and
-never the (Sq, Sk) score matrix.
+math, norms and RoPE accumulate in fp32 whatever the activation dtype, as
+in JAX; an fp64 input (parameters carried at fp64, never a config's
+dtype) computes in fp64 throughout, an oracle of the same function.
+``flash_attention`` is JAX's blockwise oracle as loops over q and kv
+chunks: the same chunks (``_pick_chunk``), masks, ``NEG_INF`` fill and
+fp32 online softmax, and never the (Sq, Sk) score matrix.
 """
 
 from __future__ import annotations
@@ -23,6 +25,12 @@ NEG_INF = -1e30
 
 def _dt(cfg: ArchConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The dtype attention, norms and RoPE compute in: fp32, or fp64 for
+    an fp64 input."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 def _silu(x: torch.Tensor) -> torch.Tensor:
@@ -46,22 +54,23 @@ def _pick_chunk(s: int, want: int) -> int:
 
 def rmsnorm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm with JAX's ``(1 + w)`` scale and the mean taken in fp32."""
-    xf = x.to(torch.float32)
+    xf = x.to(_acc(x.dtype))
     scale = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-    return ((xf * scale) * (1.0 + w.to(torch.float32))).to(x.dtype)
+    return ((xf * scale) * (1.0 + w.to(xf.dtype))).to(x.dtype)
 
 
 def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     """x: (..., L, H, D) with pos (..., L) broadcastable; fp32 angles, the
     two halves rotated and concatenated."""
     half = x.shape[-1] // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                    device=x.device) / half)
-    angles = pos.to(torch.float32)[..., None] * freqs           # (..., L, half)
+    acc = _acc(x.dtype)
+    freqs = theta ** (-torch.arange(0, half, dtype=acc, device=x.device)
+                      / half)
+    angles = pos.to(acc)[..., None] * freqs                 # (..., L, half)
     cos = torch.cos(angles)[..., None, :]                       # (..., L, 1, half)
     sin = torch.sin(angles)[..., None, :]
-    x1 = x[..., :half].to(torch.float32)
-    x2 = x[..., half:].to(torch.float32)
+    x1 = x[..., :half].to(acc)
+    x2 = x[..., half:].to(acc)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 
@@ -84,7 +93,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rep = H // KV
     qc = _pick_chunk(Sq, q_chunk)
     kc = _pick_chunk(Sk, kv_chunk)
-    f32 = torch.float32
+    f32 = _acc(q.dtype)
 
     qs = (q.to(f32) * (1.0 / math.sqrt(D))).reshape(B, Sq // qc, qc, KV, rep, D)
     ks = k.reshape(B, Sk // kc, kc, KV, D)
@@ -160,14 +169,17 @@ def attention_prefill_kv(p, x, cfg: ArchConfig, positions) -> tuple:
 
 
 def decode_attention(p, x, cache_k, cache_v, pos: int, sctx: ShardingCtx,
-                     cfg: ArchConfig, *, slot_pos: torch.Tensor) -> torch.Tensor:
+                     cfg: ArchConfig, *,
+                     slot_pos: torch.Tensor | None = None) -> torch.Tensor:
     """Single-token decode. x: (B, D); cache_{k,v}: (B, KV, S, hd);
-    ``slot_pos``: (S,) absolute position of each cache slot (ring buffers).
-    Slots past ``pos`` are masked."""
-    B, KV, _, hd = cache_k.shape
+    ``slot_pos``: (S,) absolute position of each cache slot (ring buffers);
+    defaults to arange(S).  Slots past ``pos`` are masked."""
+    B, KV, S, hd = cache_k.shape
+    if slot_pos is None:
+        slot_pos = torch.arange(S, device=x.device)
     H = cfg.n_heads
     rep = H // KV
-    f32 = torch.float32
+    f32 = _acc(x.dtype)
     q = torch.einsum("bd,dhk->bhk", x, p["wq"])
     here = torch.arange(pos, pos + 1, device=x.device)
     q = rope(q[:, None], here, cfg.rope_theta)[:, 0]
@@ -194,8 +206,8 @@ def cache_write(cache: torch.Tensor, new: torch.Tensor, slot: int) -> torch.Tens
 # MLP
 # ---------------------------------------------------------------------------
 
-def mlp_specs(cfg: ArchConfig) -> dict:
-    D, F = cfg.d_model, cfg.d_ff
+def mlp_specs(cfg: ArchConfig, d_ff: int | None = None) -> dict:
+    D, F = cfg.d_model, d_ff or cfg.d_ff
     dt = _dt(cfg)
     return {
         "wi": ParamSpec((D, F), ("embed", "mlp"), dt),

@@ -1,8 +1,12 @@
-"""Model assembly: the serving and training paths of the ssm and hybrid
-families.
+"""Model assembly: the serving and training paths of the dense, moe, ssm
+and hybrid families.
 
 Counterpart of ``repro.models.model`` for the families ported so far:
 
+  dense  — decoder-only LM, GQA/MQA (granite-3-8b, granite-34b, ...);
+  moe    — decoder-only with token-choice top-k MoE (dbrx-132b, kimi-k2),
+           the same blocks with ``models.moe`` as the MLP and its aux losses
+           (``lb_loss``, ``router_z``) summed over layers;
   ssm    — Mamba-2 SSD stack, attention-free (mamba2-130m);
   hybrid — RecurrentGemma: the (RG-LRU, RG-LRU, local-attn) pattern plus a
            tail of RG-LRU layers, the attention KV cache a ring of
@@ -13,12 +17,12 @@ Counterpart of ``repro.models.model`` for the families ported so far:
 tensors, under the JAX names.  The layer stack is a loop over parameters
 stacked along a leading ``layers`` axis (JAX's ``lax.scan``).  ``Model`` is
 the ``nn.Module`` that holds the parameters on one device and serves
-``prefill`` / ``decode``; ``build_model`` makes one.  Both families train:
-``loss_fn`` (the chunked cross-entropy over the trunk, each layer body
-under ``torch.utils.checkpoint`` when ``cfg.remat``, as JAX wraps it in
-``jax.checkpoint``) is differentiated by ``repro_torch.train``.  The other
-families (dense, moe, encdec, vlm) raise ``NotImplementedError`` naming
-the ROADMAP item that brings them.
+``prefill`` / ``decode``; ``build_model`` makes one.  Every family here
+trains: ``loss_fn`` (the chunked cross-entropy over the trunk, each layer
+body under ``torch.utils.checkpoint`` when ``cfg.remat``, as JAX wraps it
+in ``jax.checkpoint``) is differentiated by ``repro_torch.train``.  The
+encdec and vlm families raise ``NotImplementedError`` naming the ROADMAP
+item that brings them.
 """
 
 from __future__ import annotations
@@ -33,16 +37,16 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.sharding import ShardingCtx
 from repro_torch.solver.system import resolve_device
 from .config import ArchConfig
-from .layers import _dt, mlp_apply, mlp_apply_1tok, mlp_specs, rmsnorm
+from .layers import _acc, _dt, mlp_apply, mlp_apply_1tok, mlp_specs, rmsnorm
 from .params import ParamSpec, check_tree, init_params, tree_leaves, tree_map
 from .rglru import rglru_apply, rglru_decode_step, rglru_specs
 from .ssm import ssm_apply, ssm_decode_step, ssm_specs
 from .transformer import block_apply, block_decode, block_prefill_kv, block_specs
 
 # where each unported family comes from (ROADMAP.md, Queue 1)
-_UNPORTED = dict.fromkeys(("dense", "moe", "encdec", "vlm"),
-                          "Queue 1 item 4 (the rest of the model families)")
-_PORTED = ("ssm", "hybrid")
+_UNPORTED = dict.fromkeys(("encdec", "vlm"),
+                          "Queue 1 item 4b (the encdec and vlm families)")
+_PORTED = ("dense", "moe", "ssm", "hybrid")
 # the logical name of a cache's sequence axis: the one a serving driver grows
 SEQ_AXIS = "act_kv_seq"
 
@@ -113,6 +117,10 @@ def _hybrid_layout(cfg: ArchConfig) -> tuple:
 def param_specs(cfg: ArchConfig) -> dict:
     _check_family(cfg)
     specs = _embed_specs(cfg)
+    if cfg.family in ("dense", "moe"):
+        specs["blocks"] = stack_specs(
+            block_specs(cfg, moe=cfg.family == "moe"), cfg.n_layers)
+        return specs
     if cfg.family == "ssm":
         specs["blocks"] = stack_specs(_ssm_layer_specs(cfg), cfg.n_layers)
         return specs
@@ -127,10 +135,16 @@ def param_specs(cfg: ArchConfig) -> dict:
 
 def cache_specs(cfg: ArchConfig, batch: int, seq: int) -> dict:
     """Decode-time state.  ``seq`` sizes the sequence axes (named
-    ``act_kv_seq``): the hybrid family's ring of ``min(window, seq)`` K/V
-    slots; the ssm state and the RG-LRU state have none."""
+    ``act_kv_seq``): the dense and moe families' K/V caches of ``seq``
+    slots, the hybrid family's ring of ``min(window, seq)``; the ssm state
+    and the RG-LRU state have none."""
     _check_family(cfg)
     dt = _dt(cfg)
+    if cfg.family in ("dense", "moe"):
+        kv = ParamSpec((cfg.n_layers, batch, cfg.n_kv_heads, seq, cfg.hd),
+                       ("layers", "act_batch", "act_kv", SEQ_AXIS,
+                        "act_head_dim"), dt, init="zeros")
+        return {"k": kv, "v": kv}
     if cfg.family == "hybrid":
         G, rem, keys = _hybrid_layout(cfg)
         R, W = cfg.rnn_dim, cfg.conv_width
@@ -202,7 +216,7 @@ def _embed_tokens(params, tokens, sctx: ShardingCtx, cfg: ArchConfig):
 
 def _logits_1tok(params, x, sctx: ShardingCtx, cfg: ArchConfig):
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    logits = (x @ params["unembed"]).to(torch.float32)
+    logits = (x @ params["unembed"]).to(_acc(x.dtype))
     return sctx.constrain(logits, ("act_batch", "act_vocab"))
 
 
@@ -235,11 +249,28 @@ def ce_loss_chunked(x, unembed, labels, sctx: ShardingCtx, chunk: int = 512):
 
 
 def _forward_trunk(params, tokens, sctx: ShardingCtx, cfg: ArchConfig):
-    """Token trunk -> final hidden states (B, S, D) + aux losses (zero for
-    these families, which route nothing)."""
+    """Token trunk -> final hidden states (B, S, D) + aux losses: the moe
+    family's summed over layers, zero for the others, which route
+    nothing."""
     _check_family(cfg)
     x = _embed_tokens(params, tokens, sctx, cfg)
     aux = {"lb_loss": 0.0, "router_z": 0.0}
+    if cfg.family in ("dense", "moe"):
+        positions = torch.arange(tokens.shape[1], device=x.device)
+        moe = cfg.family == "moe"
+
+        def block_fn(p, x):
+            return block_apply(p, x, sctx, cfg, positions=positions,
+                               window=cfg.window, moe=moe)
+        block_fn = _maybe_remat(block_fn, cfg)
+        lb = zz = 0.0
+        for p in _layers(params["blocks"]):
+            x, a = block_fn(p, x)
+            if moe:
+                lb = lb + a["lb_loss"]
+                zz = zz + a["router_z"]
+        return (rmsnorm(params["ln_f"], x, cfg.norm_eps),
+                {"lb_loss": lb, "router_z": zz})
     if cfg.family == "ssm":
         def body_fn(p, x):
             h, _, _ = ssm_apply(p["ssm"], rmsnorm(p["ln"], x, cfg.norm_eps),
@@ -295,6 +326,9 @@ def prefill_fn(params, batch, sctx: ShardingCtx, cfg: ArchConfig):
     """Process a full prompt; return (last-token logits, decode cache)."""
     _check_family(cfg)
     x = _embed_tokens(params, batch["tokens"], sctx, cfg)
+    if cfg.family in ("dense", "moe"):
+        x, cache = _kv_prefill(params, x, sctx, cfg)
+        return _logits_1tok(params, x[:, -1], sctx, cfg), cache
     if cfg.family == "hybrid":
         x, cache = _hybrid_prefill(params, x, sctx, cfg)
         return _logits_1tok(params, x[:, -1], sctx, cfg), cache
@@ -309,6 +343,25 @@ def prefill_fn(params, batch, sctx: ShardingCtx, cfg: ArchConfig):
             outs[key].append(value)
     cache = {k: torch.stack(v) for k, v in outs.items()}
     return _logits_1tok(params, x[:, -1], sctx, cfg), cache
+
+
+def _kv_prefill(params, x, sctx: ShardingCtx, cfg: ArchConfig):
+    """The dense and moe blocks; each layer's K/V cache holds every
+    position of the prompt, (L, B, KV, S, hd), at the activations'
+    dtype."""
+    positions = torch.arange(x.shape[1], device=x.device)
+    moe = cfg.family == "moe"
+    cache = None
+    for i in range(cfg.n_layers):
+        p = _layer(params["blocks"], i)
+        k, v = block_prefill_kv(p, x, cfg, positions)
+        if cache is None:
+            cache = {"k": k.new_empty((cfg.n_layers,) + k.shape),
+                     "v": v.new_empty((cfg.n_layers,) + v.shape)}
+        cache["k"][i], cache["v"][i] = k, v
+        x, _ = block_apply(p, x, sctx, cfg, positions=positions,
+                           window=cfg.window, moe=moe)
+    return x, cache
 
 
 def _stack_states(states: list) -> dict:
@@ -364,6 +417,13 @@ def decode_fn(params, cache, token, pos: int, sctx: ShardingCtx,
     _check_family(cfg)
     x = F.embedding(token, params["embed"])
     x = sctx.constrain(x, ("act_batch", None))
+    if cfg.family in ("dense", "moe"):
+        new_cache = {k: torch.empty_like(v) for k, v in cache.items()}
+        for i in range(cfg.n_layers):
+            x, new_cache["k"][i], new_cache["v"][i] = block_decode(
+                _layer(params["blocks"], i), x, cache["k"][i],
+                cache["v"][i], pos, sctx, cfg, moe=cfg.family == "moe")
+        return _logits_1tok(params, x, sctx, cfg), new_cache
     if cfg.family == "hybrid":
         x, new_cache = _hybrid_decode(params, cache, x, pos, sctx, cfg)
         return _logits_1tok(params, x, sctx, cfg), new_cache

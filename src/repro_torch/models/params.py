@@ -99,7 +99,9 @@ def init_params(spec_tree, generator: torch.Generator, *, device) -> dict:
             max(fan_in, 1))
         draw = torch.randn(s.shape, generator=generator, dtype=torch.float32,
                            device=device)
-        return (scale * draw).to(s.dtype)
+        # scaled in place: a bf16 leaf costs 4 + 2 B an element at its
+        # peak, not 4 + 4 + 2 (kimi-k2's one-layer experts: 5.6 G each)
+        return draw.mul_(scale).to(s.dtype)
 
     values = iter([one(s) for s in tree_leaves(spec_tree)])
 

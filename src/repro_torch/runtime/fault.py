@@ -7,9 +7,8 @@ wired into ``launch/train.py``:
   * transient  -> ``with_retries`` around the step (the step is a pure
                   function of its inputs, so a retry sees no half-updated
                   state);
-  * straggler  -> ``StragglerMonitor`` flags; the remedy, an elastic
-                  re-mesh without the slow host, waits for ROADMAP Queue 1
-                  item 5;
+  * straggler  -> ``StragglerMonitor`` flags; remedy = elastic re-mesh
+                  without the slow host (``runtime/elastic.py``);
   * dead host  -> heartbeat timeout -> restart from the latest committed
                   checkpoint (``ckpt/`` is atomic + auto-resume).
 """

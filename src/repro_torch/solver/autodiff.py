@@ -74,8 +74,10 @@ def solve(factorization: Factorization, rhs: torch.Tensor) -> torch.Tensor:
     ``factorization`` through one transposed solve on the same stored
     factor.  A backend that spans ranks lays ``rhs`` out first (its
     ``place`` hook), so the gradient of ``rhs`` comes back in the layout
-    the caller gave."""
+    the caller gave; it solves an (N,) rhs as one column."""
     place = get_pure_backend(factorization.meta.backend).place
     if place is not None:
+        if rhs.ndim == 1:
+            return solve(factorization, rhs[:, None])[:, 0]
         rhs = place(factorization.meta, rhs)
     return _Solve.apply(factorization, rhs, *factorization.diagonals)

@@ -16,7 +16,9 @@ own columns.
     ``batch_axis`` shards M over several mesh dims, nested in mesh order.
   * ``rhs`` (N, M) is a DTensor or a plain tensor, taken as the same on
     every rank; ``x`` comes back a DTensor, ``Shard(1)`` over the batch
-    axis.  A DTensor already sharded so costs nothing to lay out.
+    axis.  A DTensor already sharded so costs nothing to lay out.  An
+    (N,) rhs is solved as one column (the first rank's; the others hold
+    none) and comes back (N,), a DTensor replicated on every rank.
   * Each rank runs the ``cuda`` backend on its columns (the hand-written
     kernels on CUDA tensors, their plain versions on CPU tensors) or the
     ``reference`` sweeps: the ``kernels`` policy, resolved at factorize
@@ -159,8 +161,8 @@ def place_rhs(meta, rhs):
     Differentiable, so the gradient comes back in the caller's layout."""
     if rhs.ndim != 2:
         raise ValueError(
-            f"the sharded backend shards the M axis of an (N, M) rhs; an "
-            f"rhs of shape {tuple(rhs.shape)} has none (pass rhs[:, None])")
+            f"the sharded backend shards the M axis of an (N, M) rhs, or "
+            f"solves an (N,) rhs as one column; got {tuple(rhs.shape)}")
     mesh, batch_axis = meta.opt("mesh"), meta.opt("batch_axis")
     dm = mesh.device_mesh
     if not isinstance(rhs, DTensor):
@@ -177,6 +179,9 @@ def _dispatch(meta, stored, rhs, *, transposed: bool) -> DTensor:
     # is bound to the policy that built it (recorded as `shard_build`), so
     # a later `with_options(fact, kernels=...)` would dispatch a mismatched
     # factor.
+    if rhs.ndim == 1:                # one column, returned (N,) as JAX's
+        return _dispatch(meta, stored, rhs[:, None],
+                         transposed=transposed)[:, 0]
     kernels = meta.opt("kernels")
     if kernels != meta.opt("shard_build"):
         raise ValueError(

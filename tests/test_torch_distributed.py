@@ -13,7 +13,9 @@ JAX package on the conftest's 4 host devices:
   * ``make_compressed_mean`` over two steps of error feedback (within
     1e-6 of JAX, within JAX's own 0.05 of the exact mean);
   * ``pipeline_run`` with K 4, M 8 (within 1e-5 of JAX and of the
-    sequential oracle);
+    sequential oracle), and its gradients at mb 2, d 3 for the loss
+    ``sum(y²)`` on every rank (within 1e-6 of ``jax.grad`` through JAX's
+    ``pipeline_run`` and of the sequential stages' gradients);
   * ``remesh_plan``, and ``elastic_restore`` of a checkpoint that the JAX
     package saved, onto the (2, 2) mesh: each rank's shards are the right
     slices, and ``full_tensor()`` is the saved arrays bit for bit.
@@ -88,6 +90,7 @@ PLACEMENT_CASES = {
     "size_one_axis": (("act_batch", "act_heads"), (7, 16), (3, 4), {}),
 }
 PIPE_K, PIPE_M, PIPE_MB, PIPE_D = 4, 8, 4, 16
+GRAD_MB, GRAD_D = 2, 3              # the gradient case's microbatch, width
 
 
 def _jax_mesh(shape, axes) -> JaxMesh:
@@ -105,12 +108,22 @@ def _grads(step: int) -> np.ndarray:
         size=(WORLD, 32)).astype(np.float32)
 
 
-def _pipe_inputs():
+def _pipe_inputs(mb: int = PIPE_MB, d: int = PIPE_D):
     rng = np.random.default_rng(0)
-    ws = (rng.normal(size=(PIPE_K, PIPE_D, PIPE_D)) /
-          np.sqrt(PIPE_D)).astype(np.float32)
-    x = rng.normal(size=(PIPE_M, PIPE_MB, PIPE_D)).astype(np.float32)
+    ws = (rng.normal(size=(PIPE_K, d, d)) / np.sqrt(d)).astype(np.float32)
+    x = rng.normal(size=(PIPE_M, mb, d)).astype(np.float32)
     return ws, x
+
+
+def _sequential_grads(ws: np.ndarray, x: np.ndarray) -> tuple:
+    """The gradients of sum(y²) through the stages one after another."""
+    w = torch.from_numpy(ws).requires_grad_()
+    h = torch.from_numpy(x).requires_grad_()
+    y = h
+    for k in range(PIPE_K):
+        y = torch.tanh(y @ w[k])
+    (y ** 2).sum().backward()
+    return w.grad.numpy(), h.grad.numpy()
 
 
 def _cfgs():
@@ -179,6 +192,18 @@ def _rank_pipeline(mesh_pp) -> dict:
     return {"got": got.numpy()}
 
 
+def _rank_pipeline_grad(mesh_pp) -> dict:
+    """The gradients of sum(y²), the same loss on every rank, with respect
+    to the stages' weights and the microbatches (plain tensors)."""
+    from repro_torch.runtime import pipeline_run
+    ws, x = (torch.from_numpy(a).requires_grad_()
+             for a in _pipe_inputs(GRAD_MB, GRAD_D))
+    y = pipeline_run(mesh_pp, "pp", lambda w, h: torch.tanh(h @ w), ws, x)
+    (y ** 2).sum().backward()
+    return {"loss": float((y ** 2).sum()), "ws": ws.grad.numpy(),
+            "x": x.grad.numpy()}
+
+
 def _rank_elastic(ckpt_dir: str) -> dict:
     """The JAX checkpoint restored onto the (2, 2) mesh, and the model's
     own parameters laid out by ``place_tree`` on the train step's
@@ -212,6 +237,8 @@ def _worker(rank: int, init_file: str, out_dir: str) -> None:
             "compressed": _rank_compressed_mean(
                 mesh_over_ranks((WORLD,), ("pod",), device="cpu")),
             "pipeline": _rank_pipeline(
+                mesh_over_ranks((WORLD,), ("pp",), device="cpu")),
+            "pipeline_grad": _rank_pipeline_grad(
                 mesh_over_ranks((WORLD,), ("pp",), device="cpu")),
             "elastic": _rank_elastic(str(Path(out_dir, "ckpt"))),
         }
@@ -276,6 +303,14 @@ def _jax_side(tmp: Path) -> dict:
     out["pipeline"] = np.asarray(jax_pipeline_run(
         _jax_mesh((PIPE_K,), ("pp",)), "pp",
         lambda w, h: jnp.tanh(h @ w), jnp.asarray(ws), jnp.asarray(x)))
+
+    def pipe_loss(ws, x):
+        y = jax_pipeline_run(_jax_mesh((PIPE_K,), ("pp",)), "pp",
+                             lambda w, h: jnp.tanh(h @ w), ws, x)
+        return jnp.sum(y ** 2)
+    g_ws, g_x = jax.jit(jax.grad(pipe_loss, argnums=(0, 1)))(
+        *map(jnp.asarray, _pipe_inputs(GRAD_MB, GRAD_D)))
+    out["pipeline_grad"] = {"ws": np.asarray(g_ws), "x": np.asarray(g_x)}
     jmodel, jopt, _ = _jax_state()
     params, opt_state, step, _ = jax_elastic_restore(
         str(tmp / "ckpt"), jax_remesh_plan(WORLD, model=2), jmodel, jopt)
@@ -458,6 +493,31 @@ def test_pipeline_matches_jax_and_the_sequential_oracle(group):
         np.testing.assert_allclose(got, want["pipeline"], rtol=1e-5,
                                    atol=1e-5)
         np.testing.assert_allclose(got, h.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("wrt", ["ws", "x"])
+def test_pipeline_gradients_match_jax_grad_and_the_sequential_stages(
+        group, wrt):
+    """Every rank holds the whole gradient of the stages' weights and of
+    the microbatches: within 1e-6 of ``jax.grad`` through JAX's pipeline
+    and of the sequential stages' (JAX's own gradient meets the
+    sequential one within 2.4e-7)."""
+    ranks, want = group
+    seq = dict(zip(("ws", "x"), _sequential_grads(
+        *_pipe_inputs(GRAD_MB, GRAD_D))))
+    assert np.abs(seq[wrt]).max() > 0.1
+    for res in ranks:
+        got = res["pipeline_grad"][wrt]
+        np.testing.assert_allclose(got, want["pipeline_grad"][wrt],
+                                   rtol=0, atol=1e-6)
+        np.testing.assert_allclose(got, seq[wrt], rtol=0, atol=1e-6)
+
+
+def test_fault_docstring_points_at_the_elastic_remesh():
+    from repro_torch.runtime import fault
+    assert "remedy = elastic re-mesh" in fault.__doc__
+    assert "(``runtime/elastic.py``)" in fault.__doc__
+    assert "Queue 1" not in fault.__doc__
 
 
 def test_bubble_fraction():

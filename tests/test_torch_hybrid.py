@@ -250,15 +250,49 @@ def test_block_decode(pos, dtype):
     assert torch.equal(tk, before[0]) and torch.equal(tv, before[1])
 
 
-@pytest.mark.parametrize("kw", (dict(moe=True), dict(kind="cross")),
-                         ids=("moe", "cross"))
+def test_moe_block_specs_match_jax():
+    """The MoE block is ported: its spec tree is JAX's (the numbers are in
+    tests/test_torch_moe.py)."""
+    for arch in ("dbrx_132b", "kimi_k2_1t_a32b"):
+        cfg = configs.get_smoke_config(arch)
+        jcfg = jconfigs.get_smoke_config(arch)
+        got = tree_leaves(transformer.block_specs(cfg, moe=True))
+        want = jax.tree_util.tree_leaves(
+            jtransformer.block_specs(jcfg, moe=True),
+            is_leaf=lambda s: hasattr(s, "names"))
+        assert [(s.shape, s.names, s.init, s.scale) for s in got] == \
+            [(s.shape, s.names, s.init, s.scale) for s in want], arch
+
+
+@pytest.mark.parametrize("kw", (dict(kind="cross"),), ids=("cross",))
 def test_unported_blocks_name_their_roadmap_item(kw):
     cfg = configs.get_smoke_config(ARCH)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1 item 4b"):
         transformer.block_specs(cfg, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1 item 4b"):
         transformer.block_apply({}, None, SCTX, cfg, positions=None, window=0,
                                 **kw)
+
+
+@pytest.mark.parametrize("fn,kw", [
+    ("block_apply", dict(kv_input=torch.zeros(1))),
+    ("block_apply", dict(use_rope=False)),
+    ("block_prefill_kv", dict(kv_input=torch.zeros(1))),
+    ("block_decode", dict(write=False)),
+    ("block_decode", dict(use_rope=False))],
+    ids=("apply-kv_input", "apply-no_rope", "prefill_kv-kv_input",
+         "decode-no_write", "decode-no_rope"))
+def test_cross_attention_options_name_their_roadmap_item(fn, kw):
+    cfg = configs.get_smoke_config(ARCH)
+    args = {"block_apply": ({}, None, SCTX, cfg),
+            "block_prefill_kv": ({}, None, cfg, None),
+            "block_decode": ({}, None, None, None, 0, SCTX, cfg)}[fn]
+    extra = {"block_apply": dict(positions=None, window=0)}.get(fn, {})
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1 item 4b"):
+        getattr(transformer, fn)(*args, **extra, **kw)
 
 
 # ---------------------------------------------------------------------------

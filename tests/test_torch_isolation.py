@@ -33,14 +33,15 @@ print(len(names), ",".join(subpackages), ",".join(leaked))
 """
 
 # every subpackage of the port, and its modules: the ten configs, the model
-# layers, the serving and training drivers, the sharding rules, the data,
-# optimizer, checkpoint and fault-tolerance modules, and the multi-device
-# ones on torch.distributed (the sharded solver, the mesh builders, the
-# compressed mean, the pipeline and elastic restore) among them
+# layers (the MoE layer among them), the serving and training drivers, the
+# sharding rules, the data, optimizer, checkpoint and fault-tolerance
+# modules, and the multi-device ones on torch.distributed (the sharded
+# solver, the mesh builders, the compressed mean, the pipeline and elastic
+# restore) among them
 SUBPACKAGES = ["ckpt", "configs", "convert", "core", "data", "kernels",
                "launch", "models", "pde", "runtime", "sharding", "solver",
                "train"]
-MODULES = 63
+MODULES = 64
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():

@@ -106,11 +106,15 @@ def test_configs_are_the_reference_configs():
 
 
 # the mamba2-130m cases keep the ids they had before the hybrid family
+_SPEC_ARCHS = ("recurrentgemma-9b", "granite-3-8b", "granite-34b",
+               "dbrx-132b", "kimi-k2-1t-a32b")
+
+
 @pytest.mark.parametrize("smoke,arch", [
-    (True, "mamba2-130m"), (False, "mamba2-130m"),
-    (True, "recurrentgemma-9b"), (False, "recurrentgemma-9b")],
-    ids=("True", "False", "True-recurrentgemma-9b",
-         "False-recurrentgemma-9b"))
+    (True, "mamba2-130m"), (False, "mamba2-130m")]
+    + [(smoke, arch) for arch in _SPEC_ARCHS for smoke in (True, False)],
+    ids=["True", "False"] + [f"{smoke}-{arch}" for arch in _SPEC_ARCHS
+                             for smoke in (True, False)])
 def test_param_and_cache_specs_match_jax(smoke, arch):
     get = "get_smoke_config" if smoke else "get_config"
     cfg = getattr(configs, get)(arch)
@@ -147,14 +151,15 @@ def test_init_params_follows_the_jax_rule():
     assert torch.equal(p["w"], again["w"])
 
 
-@pytest.mark.parametrize("arch", ("granite_34b", "dbrx_132b",
-                                  "seamless_m4t_large_v2",
+@pytest.mark.parametrize("arch", ("seamless_m4t_large_v2",
                                   "llama_3_2_vision_90b"))
 def test_unported_families_name_their_roadmap_item(arch):
     cfg = configs.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1 item 4b"):
         tmodel.build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1 item 4b"):
         tmodel.cache_specs(cfg, 1, 8)
 
 

@@ -14,6 +14,8 @@ the CPU), bit for bit.  Inputs come from numpy seeds.
     within the same of ``jax.grad`` through JAX's sharded backend;
   * the only collective of a solve and its backward, for a DTensor rhs,
     is the diagonal gradient's one all-reduce;
+  * an (N,) rhs at N 16, solved as one column and returned (N,), with
+    its gradients, against JAX's;
   * the ``kernels`` policy, the override that raises, ``"pallas"``, the
     TPU knobs and the error without a process group.
 """
@@ -50,6 +52,7 @@ FP64 = [(3, True, "constant", 26, "float64"),
         (5, True, "uniform", 24, "float64")]
 CASES = FP32 + FP64
 TOL = {"float32": 1e-5, "float64": 1e-12}
+N1 = 16                              # the (N,) rhs case
 
 
 def case_id(case) -> str:
@@ -204,12 +207,35 @@ def _rank_policies() -> dict:
     out["plan"] = (p.backend, p.impl.n_shards, p.impl.batch_axis,
                    p.impl.kernels)
     out["plan_x"] = p.solve(rhs).to_local().numpy()
-    try:
-        solve(factorize(system, backend="sharded"), torch.ones(N))
-        out["one_dim"] = "no error"
-    except ValueError as exc:
-        out["one_dim"] = str(exc)
     return out
+
+
+def _one_dim_inputs() -> dict:
+    """A constant tridiagonal system at N1 and an (N1,) rhs and loss
+    weight, from a numpy seed."""
+    rng = np.random.default_rng(16)
+    a, c = rng.uniform(-1, 1, N1), rng.uniform(-1, 1, N1)
+    return {"diags": [v.astype(np.float32)
+                      for v in (a, np.abs(a) + np.abs(c) + 2.5, c)],
+            "rhs": rng.normal(size=N1).astype(np.float32),
+            "w": rng.normal(size=N1).astype(np.float32)}
+
+
+def _rank_one_dim() -> dict:
+    """An (N1,) rhs: solved as one column, returned (N1,), with the
+    gradients of sum(x · w)."""
+    data = _one_dim_inputs()
+    diags = [torch.from_numpy(v).requires_grad_() for v in data["diags"]]
+    fact = factorize(BandedSystem.tridiag(*diags, n=N1, device="cpu"),
+                     backend="sharded")
+    rhs = torch.from_numpy(data["rhs"]).requires_grad_()
+    x = solve(fact, rhs)
+    (x.to_local() * torch.from_numpy(data["w"])).sum().backward()
+    lam = transpose_solve(fact, rhs.detach())
+    return {"shape": tuple(x.shape), "lam_shape": tuple(lam.shape),
+            "x": x.to_local().detach().numpy(), "lam": lam.to_local().numpy(),
+            "rhs_grad": rhs.grad.numpy(),
+            "diag_grads": [d.grad.numpy() for d in diags]}
 
 
 def _worker(rank: int, init_file: str, out_dir: str) -> None:
@@ -219,7 +245,8 @@ def _worker(rank: int, init_file: str, out_dir: str) -> None:
                                 rank=rank, world_size=WORLD)
         results = {"cases": {case_id(c): _rank_case(c) for c in CASES},
                    "plain_rhs": _rank_plain_rhs(),
-                   "policies": _rank_policies()}
+                   "policies": _rank_policies(),
+                   "one_dim": _rank_one_dim()}
         torch.save(results, Path(out_dir, f"rank{rank}.pt"))
         dist.destroy_process_group()
     except Exception:
@@ -290,6 +317,32 @@ def _jax_case(case) -> dict:
             "rhs_grad": np.asarray(g_rhs)}
 
 
+def _jax_one_dim() -> dict:
+    """x, λ and the gradients of sum(x · w) for the (N1,) rhs through
+    JAX's sharded backend."""
+    data = _one_dim_inputs()
+
+    @jax.jit
+    def run(diags, rhs, w):
+        def fact_of(diags):
+            return jax_factorize(JaxSystem.tridiag(*diags, n=N1),
+                                 backend="sharded", kernels="reference")
+
+        def loss(diags, r):
+            return jnp.sum(jax_solve(fact_of(diags), r) * w)
+
+        fact = fact_of(diags)
+        return (jax_solve(fact, rhs), jax_transpose_solve(fact, rhs),
+                jax.grad(loss, argnums=(0, 1))(diags, rhs))
+
+    x, lam, (g_diags, g_rhs) = run(tuple(map(jnp.asarray, data["diags"])),
+                                   jnp.asarray(data["rhs"]),
+                                   jnp.asarray(data["w"]))
+    return {"x": np.asarray(x), "lam": np.asarray(lam),
+            "rhs_grad": np.asarray(g_rhs),
+            "diag_grads": [np.asarray(g) for g in g_diags]}
+
+
 @pytest.fixture(scope="module")
 def group(tmp_path_factory):
     """Every case on the 4 ranks, and the JAX package's results meanwhile."""
@@ -299,6 +352,7 @@ def group(tmp_path_factory):
     try:
         assert jax.device_count() >= WORLD, "conftest forces 4 host devices"
         want = {case_id(c): _jax_case(c) for c in FP32}
+        want["one_dim"] = _jax_one_dim()
         jax.config.update("jax_enable_x64", True)
         try:
             want.update({case_id(c): _jax_case(c) for c in FP64})
@@ -419,9 +473,18 @@ def test_kernels_override_per_call_raises(group):
 
 
 def test_one_dimensional_rhs_is_refused(group):
-    ranks, _ = group
+    """Not refused any more: an (N,) rhs is solved as one column and comes
+    back (N,) on every rank, as JAX's sharded backend returns it; x, λ and
+    the gradients within 1e-5 of JAX's (``kernels="reference"``)."""
+    ranks, want = group
+    want = want["one_dim"]
     for res in ranks:
-        assert "(N, M) rhs" in res["policies"]["one_dim"]
+        got = res["one_dim"]
+        assert got["shape"] == got["lam_shape"] == (N1,)
+        for key in ("x", "lam", "rhs_grad"):
+            _close(got[key], want[key], 1e-5)
+        for g, w in zip(got["diag_grads"], want["diag_grads"]):
+            _close(g, w, 1e-5)
 
 
 def _cpu_system():
