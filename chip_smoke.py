@@ -139,7 +139,18 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
      decode over a 64-token prompt against the prefill (fp32 within the
      JAX suite's 2e-2 / 5e-2 bars, bf16 within three times the bf16
      prefill's own distance from fp32).  (u)'s fp32 copy does not fit on
-     either side; its parity is held on the CPU at the smoke config;
+     either side; its parity is held on the CPU at the smoke config.
+     (v) seamless-m4t-large-v2 (the encdec family) at its published
+     config (24 encoder and 24 decoder layers, d_model 1024, 16 heads,
+     d_ff 8192, vocab 256206, 1536 frames): 16 requests in waves of 8,
+     prompt 128, 128 generated, its cross memory never padded; (w)
+     llama-3.2-vision-90b (the vlm family: a gated cross block every 5th
+     layer over 2048 image tokens of width 7680) at full width, 10 layers,
+     every cross gate set to 1.0 after the init: 8 requests, 1024 + 32.
+     The same checks and timings, over JAX's zero frontends in the serve
+     and seeded normals × 0.1 elsewhere; the card-vs-CPU prefill (with the
+     fp64 runs) and the replay at 2 + 2 layers for (v), at one group
+     (5 layers) for (w);
  10. (p) training mamba2-130m at its published config (24 layers, bf16,
      remat on, random weights from the seed) through
      ``repro_torch.launch.train.train``: 20 steps of B 8 × S 4096 (the
@@ -1455,11 +1466,16 @@ def _normed(logits):
     return logits - logits.max(-1, keepdim=True).values
 
 
-def _replay(model, tokens) -> tuple:
+def _replay(model, tokens, frontend=None) -> tuple:
     """Normalised log-probs of teacher-forced decode over ``tokens`` from
-    an empty cache, and of the prefill of the same tokens."""
-    pre, _ = model.prefill({"tokens": tokens})
+    an empty cache, and of the prefill of the same tokens (with the
+    encdec or vlm ``frontend``, whose memory the empty cache takes from
+    the prefill)."""
+    from repro_torch.models.model import memory_leaves
+    pre, pre_cache = model.prefill({"tokens": tokens, **(frontend or {})})
     cache = model.init_cache(*tokens.shape)
+    cache.update({k: pre_cache[k] for k in memory_leaves(model.cfg)})
+    del pre_cache
     for t in range(tokens.shape[1]):
         step, cache = model.decode(cache, tokens[:, t], t)
     return _normed(step), _normed(pre)
@@ -1792,15 +1808,20 @@ def phase_serve_hybrid(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# cases (s), (t), (u): serving the dense family (granite-3-8b) and the moe
-# family (dbrx-132b, kimi-k2-1t-a32b)
+# cases (s)-(w): serving the attention families: dense (granite-3-8b), moe
+# (dbrx-132b, kimi-k2-1t-a32b), encdec (seamless-m4t-large-v2) and vlm
+# (llama-3.2-vision-90b)
 # ---------------------------------------------------------------------------
 
 # Each case: (arch, the published widths its config must have, layers kept
-# (None: the published depth), requests, batch, prompt, generated, layers
-# of the fp32 card-vs-CPU prefill (None: no such check), whether that check
+# (None: the published depth; the encdec family's encoder and decoder
+# each), requests, batch, prompt, generated, layers of the fp32 card-vs-CPU
+# prefill (None: no such check) and its prompt length, whether that check
 # also runs both sides at fp64 (its bar then follows fp32's own rounding),
-# layers of the decode replay (None: no replay), prefill timings).
+# layers of the decode replay (None: no replay), prefill timings, the
+# value every cross gate is set to after the init (None: no gates), and
+# whether the checks' weights draw the attention projections by the fan-in
+# rule over d_model (``_soften_attention``)).
 # The replay keeps 2 layers: these random weights (JAX's init rule) put the
 # attention logits in the hundreds, so the softmax is nearly hard and each
 # layer multiplies a rounding difference about a hundredfold; past a few
@@ -1822,37 +1843,127 @@ DENSE_MOE_CASES = {
                           n_kv_heads=8, hd=128, d_ff=12800, vocab=49155,
                           rope_theta=1e4, dtype="bfloat16"),
               layers=None, requests=16, batch=8, prompt=1024, gen=64,
-              parity_layers=2, oracle=True, replay_layers=2, reps=5),
+              parity_layers=2, parity_seq=128, oracle=True, replay_layers=2,
+              reps=5, gates=None, soft=False),
     "t": dict(arch="dbrx-132b",
               widths=dict(d_model=6144, n_heads=48, n_kv_heads=8, hd=128,
                           n_experts=16, top_k=4, expert_d_ff=10752,
                           shared_expert=False, vocab=100352,
                           capacity_factor=1.25, dtype="bfloat16"),
               layers=4, requests=8, batch=8, prompt=1024, gen=32,
-              parity_layers=1, oracle=False, replay_layers=2, reps=3),
+              parity_layers=1, parity_seq=128, oracle=False, replay_layers=2,
+              reps=3, gates=None, soft=False),
     "u": dict(arch="kimi-k2-1t-a32b",
               widths=dict(d_model=7168, n_heads=64, n_kv_heads=8, hd=112,
                           n_experts=384, top_k=8, expert_d_ff=2048,
                           shared_expert=True, vocab=163840,
                           capacity_factor=1.25, dtype="bfloat16"),
               layers=1, requests=8, batch=8, prompt=1024, gen=16,
-              parity_layers=None, oracle=False, replay_layers=None, reps=3),
+              parity_layers=None, parity_seq=None, oracle=False,
+              replay_layers=None, reps=3, gates=None, soft=False),
 }
-# the dense card-vs-CPU prefill's shape; the JAX suite's replay bars
-# (tests/test_decode_equivalence.py): dense 2e-2, moe 5e-2
-DENSE_PARITY_BATCH, DENSE_PARITY_SEQ = 2, 128
-REPLAY_BARS = {"dense": 2e-2, "moe": 5e-2}
+# seamless-m4t-large-v2, at its published config: 24 encoder and 24
+# decoder layers, d_model 1024, 16 heads (MHA, head_dim 64), d_ff 8192,
+# vocab 256206, 1536 audio frames (the frontend stub), rope θ 1e4; 2.04 G
+# parameters (0.52 G of embed and unembed, 29.4 M an encoder layer, 33.6 M
+# a decoder layer), 4.1 GB at bf16.  A wave's cross memory is 2 × 604 MB,
+# never padded (max_len 256 < 1536).  The checks cut both stacks to 2.
+# llama-3.2-vision-90b: d_model 8192, 64 heads (GQA kv 8, head_dim 128),
+# d_ff 28672, vocab 128256, a gated cross block every 5th layer over 2048
+# image tokens of width 7680 (the frontend stub); 0.856 G a block, so the
+# depth is cut from 100 to 10: two groups of 4 self blocks and a cross
+# block, 10.7 G parameters, 21.4 GB at bf16 (the whole model, 175 GB, fits
+# no card).  The checks keep one group (5 layers).  The cross gates are
+# zeros at init and tanh(0) = 0 removes the cross block, so every gate is
+# set to 1.0 after the init: the serve, the timings and the checks reach
+# the cross-attention.  Their checks soften the attention: with JAX's init
+# the fp32 log-probs of either model move 0.01-0.92 from fp64 by rounding
+# alone, differently for each sequence (PERF.md §6), so no bar
+# holds them, and a near-hard softmax would not see a wrong key's weight.
+CROSS_CASES = {
+    "v": dict(arch="seamless-m4t-large-v2",
+              widths=dict(enc_layers=24, dec_layers=24, d_model=1024,
+                          n_heads=16, n_kv_heads=16, hd=64, d_ff=8192,
+                          vocab=256206, n_frames=1536, rope_theta=1e4,
+                          dtype="bfloat16"),
+              layers=None, requests=16, batch=8, prompt=128, gen=128,
+              parity_layers=2, parity_seq=64, oracle=True, replay_layers=2,
+              reps=5, gates=None, soft=True),
+    "w": dict(arch="llama-3.2-vision-90b",
+              widths=dict(n_layers=100, d_model=8192, n_heads=64,
+                          n_kv_heads=8, hd=128, d_ff=28672, vocab=128256,
+                          cross_attn_every=5, vision_dim=7680,
+                          n_img_tokens=2048, dtype="bfloat16"),
+              layers=10, requests=8, batch=8, prompt=1024, gen=32,
+              parity_layers=5, parity_seq=128, oracle=True, replay_layers=5,
+              reps=3, gates=1.0, soft=True),
+}
+SERVE_CASES = {**DENSE_MOE_CASES, **CROSS_CASES}
+# the card-vs-CPU prefill's batch; the JAX suite's replay bars
+# (tests/test_decode_equivalence.py): dense 2e-2, moe 5e-2, encdec and vlm
+# 3e-2
+DENSE_PARITY_BATCH = 2
+REPLAY_BARS = {"dense": 2e-2, "moe": 5e-2, "encdec": 3e-2, "vlm": 3e-2}
 
 
-def _fp64_prefill(model, tokens):
-    """``model``'s prefill logits with its parameters carried at fp64: the
-    layers then compute in fp64 throughout (``models.layers._acc``)."""
+def _with_depth(cfg, layers: int):
+    """``cfg`` cut to ``layers`` layers: the encdec family's encoder and
+    decoder each, the others' stack (the vlm family's whole groups)."""
+    if cfg.family == "encdec":
+        return dataclasses.replace(cfg, enc_layers=layers, dec_layers=layers,
+                                   n_layers=2 * layers)
+    return dataclasses.replace(cfg, n_layers=layers)
+
+
+def _set_gates(model, value) -> None:
+    """Every cross block's ``gate_attn`` and ``gate_mlp`` of ``model`` set
+    to ``value``, in place."""
     import torch
-    from repro_torch.models.model import prefill_fn
-    from repro_torch.models.params import tree_map
-    with torch.inference_mode():
-        return prefill_fn(tree_map(lambda t: t.double(), model.params.tree()),
-                          {"tokens": tokens}, model.sctx, model.cfg)[0]
+    with torch.no_grad():
+        for name, p in model.params.named_parameters():
+            if name.rsplit(".", 1)[-1] in ("gate_attn", "gate_mlp"):
+                p.fill_(value)
+
+
+def _soften_attention(model) -> None:
+    """Every attention ``wq`` and ``wk`` of ``model`` (shape (..., D, H,
+    hd)) rescaled in place from JAX's fan-in rule over ``shape[-2]``
+    (std 1/√H) to the rule over its input width D (std 1/√D).  The
+    attention logits then sit near 1, as a trained model's do, not in the
+    hundreds, where the softmax is nearly hard and each layer multiplies a
+    rounding difference about 30-fold."""
+    import torch
+    with torch.no_grad():
+        for name, p in model.params.named_parameters():
+            if name.rsplit(".", 1)[-1] in ("wq", "wk"):
+                p.mul_(math.sqrt(p.shape[-2] / p.shape[-3]))
+
+
+def _frontend(cfg, batch: int, device, gen) -> dict:
+    """The encdec or vlm frontend of a batch, normals × 0.1 drawn from
+    ``gen`` (on its device) and rounded to bf16, as the JAX suite's
+    tests/test_decode_equivalence.py draws them; {} for the others."""
+    import torch
+    if cfg.family == "encdec":
+        key, shape = "frames", (batch, cfg.n_frames, cfg.d_model)
+    elif cfg.family == "vlm":
+        key, shape = "img_embed", (batch, cfg.n_img_tokens, cfg.vision_dim)
+    else:
+        return {}
+    x = torch.randn(shape, generator=gen, device=gen.device) * 0.1
+    return {key: x.to(device, torch.bfloat16)}
+
+
+def _fp64_prefill(model, batch):
+    """``model``'s prefill logits with its parameters carried at fp64: the
+    layers then compute in fp64 throughout (``models.layers._acc``).  Each
+    parameter becomes its fp64 copy in place, so the model is left at fp64
+    and its fp32 leaves are freed one by one."""
+    import torch
+    with torch.no_grad():
+        for p in model.params.parameters():
+            p.data = p.data.double()
+    return model.prefill(batch)[0]
 
 
 def _free_device() -> None:
@@ -1862,68 +1973,81 @@ def _free_device() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_serve_dense_moe(key: str, card: str) -> dict:
-    """(s), (t), (u): ``repro_torch.launch.serve.serve`` at the case's
-    published widths (depth cut where ``layers`` says), random weights
-    from the seed, with the counts set to 0 just before it and read just
-    after: these families reach no solver kernel, so no launch and no
-    plain fallback.  The K/V caches' shape and finite values are checked.
-    Then one prefill of a wave's shape timed with CUDA events (its logits
-    finite) and traced with ``torch.profiler`` (the top device ops); the
-    fp32 prefill on the card against the CPU's on the same weights, at
-    full width and ``parity_layers`` (log-probs within 1e-3; with the
+def phase_serve_attention(key: str, card: str) -> dict:
+    """(s)-(w): ``repro_torch.launch.serve.serve`` at the case's published
+    widths (depth cut where ``layers`` says), random weights from the seed
+    (the cross gates then set to ``gates``), with the counts set to 0 just
+    before it and read just after: these families reach no solver kernel,
+    so no launch and no plain fallback.  Every cache leaf's shape
+    (``cache_specs`` at the serving budget: the self-attention caches
+    grown to it, a frontend's memory at the frontend's length) and finite
+    values are checked.  Then one prefill of a wave's shape (the frontend
+    seeded normals × 0.1) timed with CUDA events (its logits finite) and
+    traced with ``torch.profiler`` (the top device ops); the fp32 prefill
+    on the card against the CPU's on the same weights and inputs, at full
+    width and ``parity_layers`` (log-probs within 1e-3; with the
     ``oracle``, within twice the CPU's own fp32 distance from its fp64
-    run, and the two fp64 runs within 1e-9); and
-    teacher-forced decode over a 64-token prompt against the prefill, at
-    full width and ``replay_layers`` (the moe family at capacity
-    ``n_experts``, as the JAX test sets it, since at 1.25 prefill and
-    decode drop different tokens): fp32 within the JAX suite's bar, bf16
-    within REPLAY_NOISE times the bf16 prefill's own distance from the
-    fp32 prefill.  Each model is freed before the next is built."""
+    run, and the two fp64 runs within 1e-9); and teacher-forced decode
+    over a 64-token prompt against the prefill, at full width and
+    ``replay_layers`` (the memory the prefill's; the moe family at
+    capacity ``n_experts``, as the JAX test sets it, since at 1.25 prefill
+    and decode drop different tokens): fp32 within the JAX suite's bar,
+    bf16 within REPLAY_NOISE times the bf16 prefill's own distance from
+    the fp32 prefill.  With ``soft``, the checks' attention projections
+    are redrawn to the fan-in rule over d_model (``_soften_attention``).
+    Each model is freed before the next is built."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
     from repro_torch.models import Model, build_model
+    from repro_torch.models.model import cache_specs, memory_leaves
     from repro_torch.models.params import tree_map
 
-    case = DENSE_MOE_CASES[key]
+    case = SERVE_CASES[key]
     cfg = get_config(case["arch"])
     got = {name: getattr(cfg, name) for name in case["widths"]}
     check(got == case["widths"],
           f"({key}) {case['arch']} is not at its published widths: {got}")
-    published = cfg.n_layers
+    published = (cfg.enc_layers if cfg.family == "encdec" else cfg.n_layers)
     if case["layers"]:
-        cfg = dataclasses.replace(cfg, n_layers=case["layers"])
+        cfg = _with_depth(cfg, case["layers"])
+    gates = case["gates"]
     t0 = time.perf_counter()
     _free_device()
     torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="cuda", seed=SEED)
+    if gates is not None:
+        _set_gates(model, gates)
     ops.reset_launches()
     out = serve(cfg, requests=case["requests"], batch=case["batch"],
-                prompt_len=case["prompt"], gen=case["gen"], device="cuda",
-                seed=SEED, log=lambda line: print(line, flush=True))
+                prompt_len=case["prompt"], gen=case["gen"], seed=SEED,
+                log=lambda line: print(line, flush=True), model=model)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     check(launches == {}, f"({key}) launches {launches}: the {cfg.family} "
                           f"family reaches no solver kernel")
     waves = out["waves"]
-    shape = (cfg.n_layers, case["batch"], cfg.n_kv_heads,
-             case["prompt"] + case["gen"], cfg.hd)
-    kv = [out["cache"][name] for name in ("k", "v")]
+    shapes = {name: spec.shape for name, spec in cache_specs(
+        cfg, case["batch"], case["prompt"] + case["gen"]).items()}
+    cache = out["cache"]
     check(out["served"] == case["requests"]
-          and all(tuple(t.shape) == shape for t in kv)
-          and all(torch.isfinite(t).all().item() for t in kv),
-          f"({key}) the K/V caches are not finite of shape {shape}")
-    del out, kv
+          and {name: tuple(t.shape) for name, t in cache.items()} == shapes
+          and all(torch.isfinite(t).all().item() for t in cache.values()),
+          f"({key}) the caches are not finite of shapes {shapes}")
+    del out, cache
+    memory = memory_leaves(cfg)
     row = {"phase": "serve", "case": key, "arch": case["arch"],
            "family": cfg.family, "card": card,
-           "reduced": ({"n_layers": [published, cfg.n_layers]}
+           "reduced": ({"n_layers": [published, case["layers"]]}
                        if case["layers"] else None),
            "requests": case["requests"], "batch": case["batch"],
            "prompt": case["prompt"], "gen": case["gen"],
            "capacity_factor": cfg.capacity_factor if cfg.n_experts else None,
-           "launches": launches, "cache_shape": list(shape),
+           "cross_gates": gates,
+           "launches": launches, "cache_shape": list(shapes["k"]),
+           "memory_shape": list(shapes[memory[0]]) if memory else None,
            "prefill_ms": [w["prefill_s"] * 1e3 for w in waves],
            "decode_ms_per_token": [w["decode_s"] * 1e3 / w["decode_steps"]
                                    for w in waves],
@@ -1934,24 +2058,25 @@ def phase_serve_dense_moe(key: str, card: str) -> dict:
 
     # one prefill of a wave's shape: CUDA events, then a profiler trace
     _free_device()
-    model = build_model(cfg, device="cuda", seed=SEED)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     tokens = torch.randint(0, cfg.vocab, (case["batch"], case["prompt"]),
                            generator=gen, device="cuda")
+    batch = {"tokens": tokens,
+             **_frontend(cfg, case["batch"], "cuda", gen)}
     ops.reset_launches()
-    logits, _ = model.prefill({"tokens": tokens})
+    logits, _ = model.prefill(batch)
     check(ops.LAUNCHES == {} and torch.isfinite(logits).all().item()
           and tuple(logits.shape) == (case["batch"], cfg.vocab),
           f"({key}) prefill logits not finite of shape (B, V), or launches "
           f"{ops.LAUNCHES}")
     del logits
-    times = event_times(lambda: model.prefill({"tokens": tokens}),
-                        reps=case["reps"], warmup=1)
+    times = event_times(lambda: model.prefill(batch), reps=case["reps"],
+                        warmup=1)
     q1, _, q3 = statistics.quantiles(times, n=4)
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        model.prefill({"tokens": tokens})
+        model.prefill(batch)
         torch.cuda.synchronize()
     kernels = _device_kernels(prof)
     top = sorted(_device_ops(prof).items(), key=lambda kv: -kv[1])[:8]
@@ -1960,40 +2085,49 @@ def phase_serve_dense_moe(key: str, card: str) -> dict:
                 "prefill_event_reps": len(times),
                 "trace_kernels_ms": sum(kernels.values()),
                 "trace_top_ops_ms": [[name[:80], ms] for name, ms in top]})
-    del model, tokens, prof
+    del model, tokens, batch, prof
     _free_device()
 
     if case["parity_layers"]:
         # fp32 at full width: the card against the CPU on the same weights
-        cut32 = dataclasses.replace(cfg, n_layers=case["parity_layers"],
+        cut32 = dataclasses.replace(_with_depth(cfg, case["parity_layers"]),
                                     dtype="float32")
         card32 = build_model(cut32, device="cuda", seed=SEED + 5)
+        if gates is not None:
+            _set_gates(card32, gates)
+        if case["soft"]:
+            _soften_attention(card32)
         cpu = Model(cut32, device="cpu",
                     params=tree_map(lambda t: t.cpu(),
                                     card32.params.tree()))
+        cpu_gen = torch.Generator().manual_seed(SEED + 5)
         toks = torch.randint(0, cfg.vocab,
-                             (DENSE_PARITY_BATCH, DENSE_PARITY_SEQ),
-                             generator=torch.Generator().manual_seed(SEED + 5))
+                             (DENSE_PARITY_BATCH, case["parity_seq"]),
+                             generator=cpu_gen)
+        cpu_batch = {"tokens": toks,
+                     **_frontend(cfg, DENSE_PARITY_BATCH, "cpu", cpu_gen)}
+        card_batch = {k: v.cuda() for k, v in cpu_batch.items()}
         ops.reset_launches()
-        got = {"fp32": card32.prefill({"tokens": toks.cuda()})[0]}
+        got = {"fp32": card32.prefill(card_batch)[0]}
         if case["oracle"]:
-            got["fp64"] = _fp64_prefill(card32, toks.cuda())
+            got["fp64"] = _fp64_prefill(card32, card_batch)
         torch.cuda.synchronize()
         check(ops.LAUNCHES == {}, f"({key}) fp32 prefill launches "
                                   f"{ops.LAUNCHES}")
-        del card32
+        del card32, card_batch
         _free_device()
-        want = {"fp32": cpu.prefill({"tokens": toks})[0]}
+        want = {"fp32": cpu.prefill(cpu_batch)[0]}
         if case["oracle"]:
-            want["fp64"] = _fp64_prefill(cpu, toks)
+            want["fp64"] = _fp64_prefill(cpu, cpu_batch)
         del cpu
         lp = {k: torch.log_softmax(v.double(), -1).cpu()
               for k, v in [("card_" + k, v) for k, v in got.items()]
               + [("cpu_" + k, v) for k, v in want.items()]}
         lp_err = (lp["card_fp32"] - lp["cpu_fp32"]).abs().max().item()
         bar = PARITY_TOL
-        row.update({"parity_layers": case["parity_layers"],
-                    "parity_shape": [DENSE_PARITY_BATCH, DENSE_PARITY_SEQ],
+        row.update({"checks_soft_attention": case["soft"],
+                    "parity_layers": case["parity_layers"],
+                    "parity_shape": [DENSE_PARITY_BATCH, case["parity_seq"]],
                     "fp32_logprob_max_abs_err": lp_err})
         if case["oracle"]:
             # fp32 rounding alone moves these log-probs about 1e-3 (the
@@ -2023,22 +2157,27 @@ def phase_serve_dense_moe(key: str, card: str) -> dict:
 
     if case["replay_layers"]:
         # teacher-forced decode against prefill, bf16 and its fp32 twin
-        rcfg = dataclasses.replace(cfg, n_layers=case["replay_layers"])
+        rcfg = _with_depth(cfg, case["replay_layers"])
         if rcfg.n_experts:
             rcfg = dataclasses.replace(
                 rcfg, capacity_factor=float(rcfg.n_experts))
         model = build_model(rcfg, device="cuda", seed=SEED + 6)
+        if gates is not None:
+            _set_gates(model, gates)
+        if case["soft"]:
+            _soften_attention(model)
         model32 = Model(dataclasses.replace(rcfg, dtype="float32"),
                         device="cuda",
                         params=tree_map(lambda t: t.float(),
                                         model.params.tree()))
         toks = torch.randint(0, cfg.vocab, (REPLAY_BATCH, REPLAY_SEQ),
                              generator=gen, device="cuda")
+        front = _frontend(cfg, REPLAY_BATCH, "cuda", gen)
         ops.reset_launches()
-        a16, b16 = _replay(model, toks)
-        a32, b32 = _replay(model32, toks)
+        a16, b16 = _replay(model, toks, front)
+        a32, b32 = _replay(model32, toks, front)
         check(ops.LAUNCHES == {}, f"({key}) replay launches {ops.LAUNCHES}")
-        del model, model32
+        del model, model32, front
         _free_device()
         bar = REPLAY_BARS[cfg.family]
         fp32_replay = _allclose(a32, b32, rtol=bar, atol=10 * bar)
@@ -2051,7 +2190,7 @@ def phase_serve_dense_moe(key: str, card: str) -> dict:
               and bf16_from_fp32 <= REPLAY_NOISE * bf16_noise,
               f"({key}) bf16 decode {bf16_from_fp32:.3e} from the fp32 "
               f"prefill, the bf16 prefill {bf16_noise:.3e}")
-        row.update({"replay_layers": rcfg.n_layers,
+        row.update({"replay_layers": case["replay_layers"],
                     "replay_capacity_factor": (rcfg.capacity_factor
                                                if rcfg.n_experts else None),
                     "replay_bar": bar,
@@ -3327,8 +3466,8 @@ def main(argv=None) -> int:
             served = phase(card)
             kernels.append(serve_recurrence_row(served, card, ptxas))
             peaks.append(served["peak_device_bytes"])
-        for key in DENSE_MOE_CASES:
-            peaks.append(phase_serve_dense_moe(key, card)
+        for key in SERVE_CASES:
+            peaks.append(phase_serve_attention(key, card)
                          ["peak_device_bytes"])
         trained = phase_train(card)
         kernels += train_recurrence_rows(trained, card, ptxas)

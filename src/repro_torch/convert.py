@@ -34,7 +34,8 @@ import torch
 from .core.penta import PentaFactor, PeriodicPentaFactor
 from .core.tridiag import PeriodicTridiagFactor, TridiagFactor
 from .kernels.ops import canonical_storage_dtype
-from .models.model import SEQ_AXIS, Model, cache_specs, param_specs
+from .models.model import (SEQ_AXIS, Model, cache_specs, memory_leaves,
+                           param_specs)
 from .models.params import check_tree, tree_leaves
 from .solver.functional import Factorization, SolveMeta
 from .solver.reference import _expand_if_scalarized
@@ -169,18 +170,33 @@ def model_from_jax(cfg, tree, *, device) -> Model:
                                                             device=device))
 
 
+def _seq_len(spec_tree, tree, memory) -> int:
+    """The ``act_kv_seq`` length of the first self-attention leaf of
+    ``tree`` (sorted-key order; the leaves named in ``memory`` skipped), or
+    0 where none has that axis."""
+    for key in sorted(spec_tree.keys() & tree.keys()):
+        spec, leaf = spec_tree[key], tree[key]
+        if isinstance(spec, dict):
+            seq = _seq_len(spec, leaf, memory) if isinstance(leaf, dict) else 0
+            if seq:
+                return seq
+        elif key not in memory and SEQ_AXIS in spec.names:
+            return leaf.shape[spec.names.index(SEQ_AXIS)]
+    return 0
+
+
 def cache_from_jax(cfg, cache, *, device) -> dict:
     """The port's decode cache of a JAX one (``prefill`` / ``init_cache``
     output, nested for the hybrid family), checked against ``cache_specs``
-    at the cache's batch (axis 1 of every leaf) and sequence length (the
-    ``act_kv_seq`` axis of a leaf that has one: the hybrid family's ring;
-    the ssm cache has none)."""
+    at the cache's batch and sequence length: the batch read where the
+    specs name it (``act_batch``), the length from the ``act_kv_seq`` axis
+    of a self-attention leaf (the hybrid family's ring; not a frontend's
+    memory, whose length is the config's; the ssm cache has none)."""
     out = tree_from_jax(cache, device=device)
-    leaves = tree_leaves(out)
-    batch = leaves[0].shape[1]
-    seq = next((leaf.shape[spec.names.index(SEQ_AXIS)] for spec, leaf in
-                zip(tree_leaves(cache_specs(cfg, batch, 0)), leaves)
-                if SEQ_AXIS in spec.names), 0)
+    specs = cache_specs(cfg, 1, 1)
+    spec, leaf = tree_leaves(specs)[0], tree_leaves(out)[0]
+    batch = leaf.shape[spec.names.index("act_batch")]
+    seq = _seq_len(specs, out, memory_leaves(cfg))
     check_tree(cache_specs(cfg, batch, seq), out)
     return out
 

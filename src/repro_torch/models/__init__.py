@@ -1,8 +1,8 @@
 """Sequence models on the port's kernels (counterpart of ``repro.models``).
 
-Ported so far: the serving paths of the ssm family (mamba2-130m) and the
-hybrid family (recurrentgemma-9b: ``rglru``, and the attention layers and
-block of ``layers`` and ``transformer``)."""
+Every family of the JAX package, served and trained: dense, moe, ssm,
+hybrid, encdec and vlm (``model``), on ``layers`` (attention, self and
+cross), ``transformer``, ``moe``, ``ssm`` and ``rglru``."""
 
 from .config import ArchConfig, reduced
 from .model import Model, build_model

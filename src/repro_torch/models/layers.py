@@ -1,5 +1,6 @@
 """Core layers shared by the model families: RMSNorm, RoPE, blockwise
-(flash-style) attention, GQA/MQA attention with KV caches, SwiGLU MLP.
+(flash-style) attention, GQA/MQA/cross attention with KV caches, SwiGLU
+MLP.
 
 Counterpart of ``repro.models.layers``, under the JAX names.  All attention
 math, norms and RoPE accumulate in fp32 whatever the activation dtype, as
@@ -80,11 +81,12 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int = 0, q_chunk: int = 1024,
+                    causal: bool = True, window: int = 0, q_chunk: int = 1024,
                     kv_chunk: int = 1024) -> torch.Tensor:
-    """Causal attention. q: (B, Sq, H, D); k, v: (B, Sk, KV, D);
-    H % KV == 0 (GQA folding); ``window`` > 0 keeps the last ``window``
-    keys of each query.
+    """q: (B, Sq, H, D); k, v: (B, Sk, KV, D); H % KV == 0 (GQA folding).
+    ``causal`` masks keys past each query (Sq = Sk); ``window`` > 0 keeps
+    the last ``window`` keys of each query.  Without either every key is
+    seen (an encoder, cross-attention over Sk ≠ Sq).
 
     Online softmax over kv chunks inside a loop over q chunks: the largest
     live tile is (B, q_chunk, H, kv_chunk) fp32."""
@@ -109,10 +111,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         for ki in range(Sk // kc):
             s = torch.einsum("bqgrd,bkgd->bqgrk", qblk, ks[:, ki].to(f32))
             k_pos = ki * kc + k_off
-            mask = q_pos[:, None] >= k_pos[None, :]
+            mask = q_pos[:, None] >= k_pos[None, :] if causal else None
             if window:
-                mask &= (q_pos[:, None] - k_pos[None, :]) < window
-            s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+                near = (q_pos[:, None] - k_pos[None, :]) < window
+                mask = near if mask is None else mask & near
+            if mask is not None:
+                s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -125,36 +129,42 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
-# self-attention (prefill / decode); cross-attention comes with the encdec
-# and vlm families
+# attention (self / cross, prefill / decode)
 # ---------------------------------------------------------------------------
 
-def attention_specs(cfg: ArchConfig) -> dict:
+def attention_specs(cfg: ArchConfig, *, kv_dim: int | None = None) -> dict:
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    kd = kv_dim or D
     dt = _dt(cfg)
     return {
         "wq": ParamSpec((D, H, hd), ("embed", "heads", "head_dim"), dt),
-        "wk": ParamSpec((D, KV, hd), ("embed", "kv", "head_dim"), dt),
-        "wv": ParamSpec((D, KV, hd), ("embed", "kv", "head_dim"), dt),
+        "wk": ParamSpec((kd, KV, hd), ("embed", "kv", "head_dim"), dt),
+        "wv": ParamSpec((kd, KV, hd), ("embed", "kv", "head_dim"), dt),
         "wo": ParamSpec((H, hd, D), ("heads", "head_dim", "embed"), dt,
                         scale=1.0 / math.sqrt(H * hd)),
     }
 
 
 def attention_apply(p, x, sctx: ShardingCtx, cfg: ArchConfig, *,
-                    positions: torch.Tensor, window: int) -> torch.Tensor:
-    """Prefill path of causal self-attention. x: (B, S, D); positions:
-    (S,)."""
-    q = rope(torch.einsum("bsd,dhk->bshk", x, p["wq"]), positions,
-             cfg.rope_theta)
-    k = rope(torch.einsum("bsd,dgk->bsgk", x, p["wk"]), positions,
-             cfg.rope_theta)
-    v = torch.einsum("bsd,dgk->bsgk", x, p["wv"])
+                    positions: torch.Tensor, causal: bool = True,
+                    window: int = 0, kv_input: torch.Tensor | None = None,
+                    use_rope: bool = True) -> torch.Tensor:
+    """Prefill / training path. x: (B, S, D); positions: (S,).  With
+    ``kv_input`` (B, Sk, kv_dim), cross-attention: K and V are made from
+    it, nothing is rotated and every key is seen."""
+    src = x if kv_input is None else kv_input
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dgk->bsgk", src, p["wk"])
+    v = torch.einsum("bsd,dgk->bsgk", src, p["wv"])
+    if use_rope and kv_input is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     q = sctx.constrain(q, ("act_batch", "act_seq", "act_heads", None))
     k = sctx.constrain(k, ("act_batch", "act_seq", "act_kv", None))
     v = sctx.constrain(v, ("act_batch", "act_seq", "act_kv", None))
-    o = flash_attention(q, k, v, window=window,
-                        q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    o = flash_attention(q, k, v, causal=causal and kv_input is None,
+                        window=window, q_chunk=cfg.q_chunk,
+                        kv_chunk=cfg.kv_chunk)
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
     return sctx.constrain(out, ("act_batch", "act_res_seq", None))
 
@@ -170,10 +180,12 @@ def attention_prefill_kv(p, x, cfg: ArchConfig, positions) -> tuple:
 
 def decode_attention(p, x, cache_k, cache_v, pos: int, sctx: ShardingCtx,
                      cfg: ArchConfig, *,
-                     slot_pos: torch.Tensor | None = None) -> torch.Tensor:
+                     slot_pos: torch.Tensor | None = None,
+                     use_rope: bool = True) -> torch.Tensor:
     """Single-token decode. x: (B, D); cache_{k,v}: (B, KV, S, hd);
-    ``slot_pos``: (S,) absolute position of each cache slot (ring buffers);
-    defaults to arange(S).  Slots past ``pos`` are masked."""
+    ``slot_pos``: (S,) absolute position of each cache slot (ring buffers;
+    a memory's slots all at 0); defaults to arange(S).  Slots past ``pos``
+    are masked; without ``use_rope`` the query is not rotated."""
     B, KV, S, hd = cache_k.shape
     if slot_pos is None:
         slot_pos = torch.arange(S, device=x.device)
@@ -181,8 +193,9 @@ def decode_attention(p, x, cache_k, cache_v, pos: int, sctx: ShardingCtx,
     rep = H // KV
     f32 = _acc(x.dtype)
     q = torch.einsum("bd,dhk->bhk", x, p["wq"])
-    here = torch.arange(pos, pos + 1, device=x.device)
-    q = rope(q[:, None], here, cfg.rope_theta)[:, 0]
+    if use_rope:
+        here = torch.arange(pos, pos + 1, device=x.device)
+        q = rope(q[:, None], here, cfg.rope_theta)[:, 0]
     qf = (q.to(f32) * (1.0 / math.sqrt(hd))).reshape(B, KV, rep, hd)
     s = torch.einsum("bgrk,bgsk->bgrs", qf, cache_k.to(f32))
     s = torch.where((slot_pos <= pos)[None, None, None, :], s, NEG_INF)

@@ -1,15 +1,14 @@
-"""Transformer blocks shared by the attention-bearing families, in prefill
-and decode flavours.
+"""Transformer blocks (self / cross / MoE variants) shared by every
+attention-bearing family, in prefill and decode flavours.
 
-Counterpart of ``repro.models.transformer`` for self-attention blocks with
-the dense MLP or the MoE layer (``moe=True``): the dense and moe families'
-blocks and the hybrid family's attention layers.  Decode writes into a
-plain cache (the token at ``pos``, every slot at its own position) or into
-a ring (``slot`` and ``slot_pos``).  The gated cross-attention block
-(``kind="cross"``) raises ``NotImplementedError`` naming the ROADMAP item
-that brings it, with the options only it and the encdec family use, which
-are not here: JAX's ``kv_input``, ``kv_dim``, ``use_rope=False``,
-``write=False`` and non-causal attention.
+Counterpart of ``repro.models.transformer``: the self-attention block with
+the dense MLP or the MoE layer (``moe=True``), and llama-3.2-vision's
+gated cross-attention block (``kind="cross"``: ``tanh(gate)`` scales the
+attention and the MLP, each gate an fp32 (1,) leaf initialised to zeros).
+Cross-attention takes its K and V from the raw memory (``kv_input``), with
+no RoPE and no causal mask.  Decode writes into a plain cache (the token at
+``pos``, every slot at its own position), into a ring (``slot`` and
+``slot_pos``), or, with ``write=False``, not at all (a memory cache).
 """
 
 from __future__ import annotations
@@ -33,38 +32,27 @@ from .layers import (
 from .moe import moe_apply, moe_specs
 from .params import ParamSpec
 
-_UNPORTED_BLOCKS = ("ROADMAP.md Queue 1 item 4b (the encdec and vlm "
-                    "families)")
 
-
-def _self_only(kind: str = "self", *, kv_input=None, use_rope: bool = True,
-               write: bool = True) -> None:
-    """Refuse what only the cross-attention block and the encdec and vlm
-    families use (JAX's keywords, which the port takes so as to name the
-    item that brings them)."""
-    if kind != "self":
-        raise NotImplementedError(
-            f"the {kind!r} attention block is not ported yet: "
-            f"{_UNPORTED_BLOCKS}")
-    for name, given in (("kv_input", kv_input is not None),
-                        ("use_rope=False", not use_rope),
-                        ("write=False", not write)):
-        if given:
-            raise NotImplementedError(
-                f"{name} (cross-attention) is not ported yet: "
-                f"{_UNPORTED_BLOCKS}")
+def _gate() -> ParamSpec:
+    """A cross block's gate: one fp32 scalar, zeros at init (JAX's
+    ``_f32()``)."""
+    return ParamSpec((1,), (None,), torch.float32, init="zeros")
 
 
 def block_specs(cfg: ArchConfig, *, kind: str = "self",
-                moe: bool = False) -> dict:
-    _self_only(kind)
+                kv_dim: int | None = None, moe: bool = False) -> dict:
     D = cfg.d_model
-    return {
+    s = {
         "ln1": ParamSpec((D,), (None,), torch.float32, init="zeros"),
-        "attn": attention_specs(cfg),
+        "attn": attention_specs(cfg, kv_dim=kv_dim),
         "ln2": ParamSpec((D,), (None,), torch.float32, init="zeros"),
         "mlp": moe_specs(cfg) if moe else mlp_specs(cfg),
     }
+    if kind == "cross":
+        # llama-3.2-vision style gated cross-attention
+        s["gate_attn"] = _gate()
+        s["gate_mlp"] = _gate()
+    return s
 
 
 def _mlp(p, x, sctx: ShardingCtx, cfg: ArchConfig, moe: bool) -> tuple:
@@ -75,26 +63,37 @@ def _mlp(p, x, sctx: ShardingCtx, cfg: ArchConfig, moe: bool) -> tuple:
 
 
 def block_apply(p, x, sctx: ShardingCtx, cfg: ArchConfig, *, positions,
-                window: int, kind="self", moe=False, kv_input=None,
+                causal=True, window=0, kv_input=None, kind="self", moe=False,
                 use_rope=True):
-    """Full-sequence causal block (train / prefill). Returns (x, aux): the
-    MoE layer's aux losses, else {}."""
-    _self_only(kind, kv_input=kv_input, use_rope=use_rope)
+    """Full-sequence block (train / prefill). Returns (x, aux): the MoE
+    layer's aux losses, else {}."""
     h = attention_apply(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps), sctx,
-                        cfg, positions=positions, window=window)
+                        cfg, positions=positions, causal=causal,
+                        window=window, kv_input=kv_input, use_rope=use_rope)
+    if kind == "cross":
+        h = torch.tanh(p["gate_attn"].to(x.dtype)) * h
     x = x + h
     m, aux = _mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), sctx, cfg,
                   moe)
+    if kind == "cross":
+        m = torch.tanh(p["gate_mlp"].to(x.dtype)) * m
     return x + m, aux
 
 
 def block_prefill_kv(p, x, cfg: ArchConfig, positions, *, kv_input=None,
                      use_rope=True):
-    """K/V cache entries of this block: the normed block input, K rotated
-    at absolute positions.  Layout (B, KV, S, hd)."""
-    _self_only(kv_input=kv_input, use_rope=use_rope)
-    return attention_prefill_kv(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
-                                cfg, positions)
+    """K/V cache entries of this block.  Self-attention caches see the
+    normed block input (K rotated at absolute positions); cross-attention
+    caches see the raw memory (``kv_input``), no RoPE.  Layout
+    (B, KV, S, hd)."""
+    if kv_input is None and use_rope:
+        return attention_prefill_kv(
+            p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps), cfg, positions)
+    src = kv_input if kv_input is not None else rmsnorm(p["ln1"], x,
+                                                        cfg.norm_eps)
+    k = torch.einsum("bsd,dgk->bsgk", src, p["attn"]["wk"])
+    v = torch.einsum("bsd,dgk->bsgk", src, p["attn"]["wv"])
+    return k.transpose(1, 2), v.transpose(1, 2)
 
 
 def block_decode(p, x, cache_k, cache_v, pos: int, sctx: ShardingCtx,
@@ -103,19 +102,23 @@ def block_decode(p, x, cache_k, cache_v, pos: int, sctx: ShardingCtx,
                  write=True, use_rope=True):
     """Single-token block. x: (B, D); the token's K and V go into slot
     ``slot`` (default ``pos``: a plain cache) of a cache whose slots hold
-    positions ``slot_pos`` (default ``arange(S)``; a ring gives its own).
+    positions ``slot_pos`` (default ``arange(S)``; a ring gives its own),
+    or, with ``write=False``, nowhere (a memory the prefill wrote).
     Returns (x, new_k, new_v); the caches given are not modified."""
-    _self_only(write=write, use_rope=use_rope)
     xin = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    k_new = torch.einsum("bd,dgk->bgk", xin, p["attn"]["wk"])
-    v_new = torch.einsum("bd,dgk->bgk", xin, p["attn"]["wv"])
-    here = torch.arange(pos, pos + 1, device=x.device)
-    k_new = rope(k_new[:, None], here, cfg.rope_theta)[:, 0]
-    wslot = pos if slot is None else slot
-    cache_k = cache_write(cache_k, k_new, wslot)
-    cache_v = cache_write(cache_v, v_new, wslot)
+    if write:
+        k_new = torch.einsum("bd,dgk->bgk", xin, p["attn"]["wk"])
+        v_new = torch.einsum("bd,dgk->bgk", xin, p["attn"]["wv"])
+        if use_rope:
+            here = torch.arange(pos, pos + 1, device=x.device)
+            k_new = rope(k_new[:, None], here, cfg.rope_theta)[:, 0]
+        wslot = pos if slot is None else slot
+        cache_k = cache_write(cache_k, k_new, wslot)
+        cache_v = cache_write(cache_v, v_new, wslot)
     h = decode_attention(p["attn"], xin, cache_k, cache_v, pos, sctx, cfg,
-                         slot_pos=slot_pos)
+                         slot_pos=slot_pos, use_rope=use_rope)
+    if "gate_attn" in p:
+        h = torch.tanh(p["gate_attn"].to(x.dtype)) * h
     x = x + h
     xin2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
     if moe:
@@ -123,4 +126,6 @@ def block_decode(p, x, cache_k, cache_v, pos: int, sctx: ShardingCtx,
         m = m[:, 0]
     else:
         m = mlp_apply_1tok(p["mlp"], xin2, sctx)
+    if "gate_mlp" in p:
+        m = torch.tanh(p["gate_mlp"].to(x.dtype)) * m
     return x + m, cache_k, cache_v

@@ -264,35 +264,106 @@ def test_moe_block_specs_match_jax():
             [(s.shape, s.names, s.init, s.scale) for s in want], arch
 
 
+def _cross_case(dtype, key: int, kind: str = "cross"):
+    """A block of ``kind`` with its gates (if any) set nonzero in JAX's
+    weights before they are converted, a (B, 12, D) input and a (B, 20, D)
+    memory."""
+    cfg, jcfg = _cfg(dtype)
+    jp = _np(jparams.init_params(jtransformer.block_specs(jcfg, kind=kind),
+                                 jax.random.PRNGKey(key)))
+    for name, value in (("gate_attn", 0.7), ("gate_mlp", -0.4)):
+        if name in jp:
+            jp[name] = np.full_like(jp[name], value)
+    rng = np.random.default_rng(key)
+    jx, tx = _inputs(rng, (2, 12, cfg.d_model), dtype)
+    jm, tm = _inputs(rng, (2, 20, cfg.d_model), dtype)
+    return cfg, jcfg, jp, convert.tree_from_jax(jp, device="cpu"), \
+        (jx, tx), (jm, tm)
+
+
 @pytest.mark.parametrize("kw", (dict(kind="cross"),), ids=("cross",))
 def test_unported_blocks_name_their_roadmap_item(kw):
+    """The gated cross-attention block, once refused here, is ported: its
+    spec tree is JAX's (the two fp32 (1,) gates, zeros at init), and with
+    the gates set nonzero ``block_apply`` over a memory matches JAX's."""
     cfg = configs.get_smoke_config(ARCH)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 4b"):
-        transformer.block_specs(cfg, **kw)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 4b"):
-        transformer.block_apply({}, None, SCTX, cfg, positions=None, window=0,
-                                **kw)
+    jcfg = jconfigs.get_smoke_config(ARCH)
+    got = transformer.block_specs(cfg, **kw)
+    want = jtransformer.block_specs(jcfg, **kw)
+    assert sorted(got) == sorted(want)
+    assert [(s.shape, s.names, s.init, s.scale) for s in tree_leaves(got)] \
+        == [(s.shape, s.names, s.init, s.scale) for s in
+            jax.tree_util.tree_leaves(want,
+                                      is_leaf=lambda s: hasattr(s, "names"))]
+    assert got["gate_attn"].dtype == torch.float32
+    cfg, jcfg, jp, tp, (jx, tx), (jm, tm) = _cross_case("float32", 11)
+    pos = np.arange(12)
+    jy, _ = jtransformer.block_apply(jp, jx, _jctx(), jcfg,
+                                     positions=jnp.asarray(pos), kv_input=jm,
+                                     use_rope=False, **kw)
+    ty, aux = transformer.block_apply(tp, tx, SCTX, cfg,
+                                      positions=torch.from_numpy(pos),
+                                      kv_input=tm, use_rope=False, **kw)
+    assert aux == {}
+    _close(ty, jy, "float32", "cross block out")
 
 
 @pytest.mark.parametrize("fn,kw", [
-    ("block_apply", dict(kv_input=torch.zeros(1))),
+    ("block_apply", dict(kv_input=True)),
     ("block_apply", dict(use_rope=False)),
-    ("block_prefill_kv", dict(kv_input=torch.zeros(1))),
+    ("block_prefill_kv", dict(kv_input=True)),
     ("block_decode", dict(write=False)),
     ("block_decode", dict(use_rope=False))],
     ids=("apply-kv_input", "apply-no_rope", "prefill_kv-kv_input",
          "decode-no_write", "decode-no_rope"))
 def test_cross_attention_options_name_their_roadmap_item(fn, kw):
-    cfg = configs.get_smoke_config(ARCH)
-    args = {"block_apply": ({}, None, SCTX, cfg),
-            "block_prefill_kv": ({}, None, cfg, None),
-            "block_decode": ({}, None, None, None, 0, SCTX, cfg)}[fn]
-    extra = {"block_apply": dict(positions=None, window=0)}.get(fn, {})
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 4b"):
-        getattr(transformer, fn)(*args, **extra, **kw)
+    """JAX's cross-attention options, once refused here, match JAX's
+    functions at fp32 on a gated cross block (gates 0.7, -0.4): K/V from
+    the memory ``kv_input`` (unrotated, every key seen), attention without
+    RoPE, and a decode step that reads a memory cache without writing it
+    (or writes the token's K unrotated)."""
+    cfg, jcfg, jp, tp, (jx, tx), (jm, tm) = _cross_case("float32", 12)
+    pos = np.arange(12)
+    jkw, tkw = ((dict(kv_input=jm), dict(kv_input=tm)) if "kv_input" in kw
+                else (kw, kw))
+    if fn == "block_apply":
+        jy, _ = jtransformer.block_apply(jp, jx, _jctx(), jcfg,
+                                         positions=jnp.asarray(pos),
+                                         kind="cross", **jkw)
+        ty, _ = transformer.block_apply(tp, tx, SCTX, cfg,
+                                        positions=torch.from_numpy(pos),
+                                        kind="cross", **tkw)
+        return _close(ty, jy, "float32", f"{fn} {sorted(kw)}")
+    if fn == "block_prefill_kv":
+        want = jtransformer.block_prefill_kv(jp, jx, jcfg, jnp.asarray(pos),
+                                             **jkw)
+        got = transformer.block_prefill_kv(tp, tx, cfg,
+                                           torch.from_numpy(pos), **tkw)
+        assert tuple(got[0].shape) == (2, cfg.n_kv_heads, 20, cfg.hd)
+        for g, w, what in zip(got, want, ("k", "v")):
+            _close(g, w, "float32", what)
+        return
+    # one token at position 9 against a 20-slot cache: the memory's slots
+    # all labelled 0 (write=False), or a plain cache written at 9
+    rng = np.random.default_rng(13)
+    jx1, tx1 = _inputs(rng, (2, cfg.d_model), "float32")
+    jk, tk = _inputs(rng, (2, cfg.n_kv_heads, 20, cfg.hd), "float32", 1.0)
+    jv, tv = _inputs(rng, (2, cfg.n_kv_heads, 20, cfg.hd), "float32", 1.0)
+    slot_pos = np.zeros(20, np.int32) if not kw.get("write", True) else \
+        np.arange(20)
+    before = (tk.clone(), tv.clone())
+    jy, jk2, jv2 = jtransformer.block_decode(
+        jp, jx1, jk, jv, 9, _jctx(), jcfg, slot_pos=jnp.asarray(slot_pos),
+        **kw)
+    ty, tk2, tv2 = transformer.block_decode(
+        tp, tx1, tk, tv, 9, SCTX, cfg,
+        slot_pos=torch.from_numpy(slot_pos).long(), **kw)
+    _close(ty, jy, "float32", f"{fn} {sorted(kw)} out")
+    _close(tk2, jk2, "float32", "k")
+    _close(tv2, jv2, "float32", "v")
+    if not kw.get("write", True):
+        assert tk2 is tk and tv2 is tv
+    assert torch.equal(tk, before[0]) and torch.equal(tv, before[1])
 
 
 # ---------------------------------------------------------------------------

@@ -107,7 +107,8 @@ def test_configs_are_the_reference_configs():
 
 # the mamba2-130m cases keep the ids they had before the hybrid family
 _SPEC_ARCHS = ("recurrentgemma-9b", "granite-3-8b", "granite-34b",
-               "dbrx-132b", "kimi-k2-1t-a32b")
+               "dbrx-132b", "kimi-k2-1t-a32b", "seamless-m4t-large-v2",
+               "llama-3.2-vision-90b")
 
 
 @pytest.mark.parametrize("smoke,arch", [
@@ -154,13 +155,42 @@ def test_init_params_follows_the_jax_rule():
 @pytest.mark.parametrize("arch", ("seamless_m4t_large_v2",
                                   "llama_3_2_vision_90b"))
 def test_unported_families_name_their_roadmap_item(arch):
-    cfg = configs.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 4b"):
-        tmodel.build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 4b"):
-        tmodel.cache_specs(cfg, 1, 8)
+    """The encdec and vlm families, once refused here, are ported: the
+    fp32 prefill's logits and cache match JAX's at the smoke config, the
+    vlm cross block's gates set nonzero (0.8, -0.6) in JAX's weights, the
+    frontend seeded normals × 0.1 at bf16.  The bar is
+    ``tests/test_torch_encdec_vlm.py``'s for a model: max|Δ| <= 1e-3 ·
+    max|ref| (normalised logits), since these smoke weights make the
+    attention nearly hard."""
+    cfg, jcfg = _cfg(arch, "float32")
+    jm = jax_build_model(jcfg)
+    jp = _np(jm.init(jax.random.PRNGKey(4)))
+    if cfg.family == "vlm":
+        jp["groups"]["cross"] = dict(
+            jp["groups"]["cross"],
+            gate_attn=np.full_like(jp["groups"]["cross"]["gate_attn"], 0.8),
+            gate_mlp=np.full_like(jp["groups"]["cross"]["gate_mlp"], -0.6))
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab, (2, 10))
+    key, shape = (("frames", (2, cfg.n_frames, cfg.d_model))
+                  if cfg.family == "encdec" else
+                  ("img_embed", (2, cfg.n_img_tokens, cfg.vision_dim)))
+    front = (rng.normal(size=shape) * 0.1).astype(np.float32)
+    jlogits, jcache = jax.jit(lambda p, b: jm.prefill(p, b, _jctx()))(
+        jp, {"tokens": jnp.asarray(toks, jnp.int32),
+             key: jnp.asarray(front, jnp.bfloat16)})
+    tm = convert.model_from_jax(cfg, jp, device="cpu")
+    tlogits, tcache = tm.prefill({"tokens": torch.from_numpy(toks),
+                                  key: torch.from_numpy(front).bfloat16()})
+    pairs = [(tlogits, jlogits, "logits")] + [
+        (tcache[k], jcache[k], k) for k in sorted(jcache)]
+    assert set(tcache) == set(jcache)
+    for got, want, what in pairs:
+        a, b = got.float().numpy(), np.asarray(want, np.float32)
+        if what == "logits":
+            a, b = a - a.max(-1, keepdims=True), b - b.max(-1, keepdims=True)
+        assert a.shape == b.shape, what
+        assert np.abs(a - b).max() <= 1e-3 * np.abs(b).max(), what
 
 
 # ---------------------------------------------------------------------------

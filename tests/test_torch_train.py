@@ -1,7 +1,8 @@
 """The port's training path against the JAX package at the smoke configs.
 
 Data (``SyntheticLM``), the schedule and AdamW, ``loss_fn`` and its
-gradients (the ssm, hybrid, dense and moe families, remat on and off),
+gradients (the ssm, hybrid, dense, moe, encdec and vlm families, remat
+on and off),
 three train steps from one converted state, gradient accumulation, loss
 descent, the SSD layer's long-sequence gradients, checkpoints read across
 the two packages, the fault-tolerance runtime and the training driver's
@@ -49,12 +50,18 @@ from repro_torch.train import (AdamW, apply_updates, global_norm,
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 SCTX = ShardingCtx.local()
-ARCHS = ("mamba2-130m", "recurrentgemma-9b", "granite-3-8b", "dbrx-132b")
+ARCHS = ("mamba2-130m", "recurrentgemma-9b", "granite-3-8b", "dbrx-132b",
+         "seamless-m4t-large-v2", "llama-3.2-vision-90b")
 # (B, S) of the loss cases: three SSD chunks of 16; past the hybrid
 # smoke config's window of 32; the dense and moe families' (at moe's
-# capacity 1.25, where tokens are dropped)
+# capacity 1.25, where tokens are dropped); the encdec and vlm families'
+# (over 24 frames, 16 image tokens)
 SHAPES = {"mamba2-130m": (2, 48), "recurrentgemma-9b": (2, 40),
-          "granite-3-8b": (2, 32), "dbrx-132b": (2, 32)}
+          "granite-3-8b": (2, 32), "dbrx-132b": (2, 32),
+          "seamless-m4t-large-v2": (2, 32), "llama-3.2-vision-90b": (2, 32)}
+# the vlm cross blocks' gates, set in JAX's weights: the init's zeros make
+# tanh(gate) remove the cross block and its gradient
+GATES = {"gate_attn": 0.8, "gate_mlp": -0.6}
 
 
 def _jctx():
@@ -75,8 +82,24 @@ def _np(tree):
 
 
 def _to_torch(batch: dict) -> dict:
-    return {k: torch.from_numpy(np.asarray(v).astype(np.int64))
+    """Integer arrays as int64 tensors; a frontend (bf16) exactly."""
+    return {k: (torch.from_numpy(np.asarray(v).astype(np.int64))
+                if np.issubdtype(np.asarray(v).dtype, np.integer)
+                else convert.tree_from_jax({k: v}, device="cpu")[k])
             for k, v in batch.items()}
+
+
+def _frontend(cfg, B: int) -> dict:
+    """The encdec or vlm frontend of a loss case: seeded normals × 0.1,
+    bf16 (``tests/test_decode_equivalence.py``'s)."""
+    rng = np.random.default_rng(6)
+    if cfg.family == "encdec":
+        shape, key = (B, cfg.n_frames, cfg.d_model), "frames"
+    elif cfg.family == "vlm":
+        shape, key = (B, cfg.n_img_tokens, cfg.vision_dim), "img_embed"
+    else:
+        return {}
+    return {key: jnp.asarray(rng.normal(size=shape) * 0.1, jnp.bfloat16)}
 
 
 def _f32(t) -> np.ndarray:
@@ -253,6 +276,11 @@ def _jax_loss_and_grads(arch: str):
         B, S = SHAPES[arch]
         batch = JaxSyntheticLM(vocab=jcfg.vocab, seq_len=S, global_batch=B,
                                seed=4).batch_at(0)
+        batch = dict(batch, **_frontend(jcfg, B))
+        if jcfg.family == "vlm":
+            cross = params["groups"]["cross"]
+            params["groups"]["cross"] = dict(cross, **{
+                k: jnp.full_like(cross[k], v) for k, v in GATES.items()})
         ctx = _jctx()
         (loss, aux), grads = jax.jit(jax.value_and_grad(
             lambda p, b: jm.loss(p, b, ctx), has_aux=True))(params, batch)
@@ -278,7 +306,9 @@ def test_loss_and_grads_match_jax(arch, remat):
     the fourth (of activations 30–70), and JAX's own fp32 gradients move
     up to 4.9e-4 of their largest entry when the parameters are carried at
     x64.  Each of their leaves is held to max|Δ| <= 3e-3 · max|g_jax|
-    (the port's worst: 1.0e-3, granite's wq)."""
+    (the port's worst: 1.0e-3, granite's wq), as are the encdec and vlm
+    families' (their smoke models draw wq alike), over a seeded frontend
+    and, for vlm, with the cross gates set nonzero in JAX's weights."""
     params_np, batch, loss, aux, grads = _jax_loss_and_grads(arch)
     cfg, _ = _cfgs(arch, remat=remat)
     params = convert.params_from_jax(cfg, params_np, device="cpu")
@@ -329,11 +359,37 @@ def test_ce_loss_chunked_cuts_the_sequence_evenly_or_raises():
 
 
 def test_unported_families_do_not_train():
-    cfg = configs.get_smoke_config("seamless_m4t_large_v2")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4b"):
-        tmodel.loss_fn({}, {"tokens": torch.zeros((1, 4), dtype=torch.long),
-                            "labels": torch.zeros((1, 4), dtype=torch.long)},
-                       SCTX, cfg)
+    """The encdec and vlm families, once refused here, train: through
+    ``Model.loss`` (the frontend in ``batch``) their fp32 losses equal
+    JAX's, and the gradients reach the frontend's projection and the
+    cross-attention (nonzero, within 3e-3 of max|g_jax|, the dense bar of
+    ``test_loss_and_grads_match_jax``)."""
+    for arch, reached in (("seamless-m4t-large-v2",
+                           (("frame_proj",), ("enc_blocks", "attn", "wq"),
+                            ("dec_blocks", "cross_attn", "wk"))),
+                          ("llama-3.2-vision-90b",
+                           (("img_proj",), ("groups", "cross", "attn", "wv"),
+                            ("groups", "cross", "gate_attn"),
+                            ("groups", "cross", "gate_mlp")))):
+        params_np, batch, loss, _, grads = _jax_loss_and_grads(arch)
+        cfg, _ = _cfgs(arch)
+        model = Model(cfg, device="cpu",
+                      params=convert.params_from_jax(cfg, params_np,
+                                                     device="cpu"))
+        params = model.params.tree()
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+        tree = tree_unflatten(params, leaves)
+        got_loss, _ = model.loss(tree, _to_torch(batch))
+        got = tree_unflatten(params, torch.autograd.grad(got_loss, leaves))
+        np.testing.assert_allclose(got_loss.item(), loss, **TOL)
+        for path in reached:
+            g, w = got, grads
+            for key in path:
+                g, w = g[key], w[key]
+            w = np.asarray(w)
+            assert np.abs(w).max() > 0, (arch, path)
+            assert np.abs(g.numpy() - w).max() <= 3e-3 * np.abs(w).max(), \
+                (arch, path)
 
 
 def test_ssd_long_sequence_grads_match_jax():
