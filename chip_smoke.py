@@ -170,7 +170,23 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
      kernel's rows at (p)'s operand (N 64 × M 1,572,864), forward and
      adjoint, give its share of a step; (q)'s (N 2048 × M 4096) are timed
      too;
- 11. one summary line (the run's seconds and peak device memory) and one
+ 11. phase ``analysis``: ``repro_torch.analysis.speccheck`` over the
+     sweep registry, then ``nansweep`` on the card: every registry spec
+     and both fused CN steps on every route of the four CUDA sources at
+     the ragged, dead-lane and aligned shapes, each output NaN-filled and
+     fenced by NaN guards (every element written and finite, nothing
+     written past it), one launch a route a shape, read from the counts;
+ 12. phase ``profile``: the measured leg of ``repro_torch.launch.dryrun``
+     on P1 mamba2-130m ``prefill_32k`` (24 layers, the batch that leaves
+     10 GB free), P2 mamba2-130m ``train_4k`` (B 8), P3 recurrentgemma-9b
+     ``prefill_32k`` (5 layers, B 1: four ``recur1`` on the tile route)
+     and P4 granite-3-8b ``decode_32k`` (40 layers, the batch that leaves
+     10 GB free): one step timed by CUDA events and one traced a cell,
+     each step's hand-kernel launches exact and the trace's equal to the
+     counter's, ``mfu``, ``measured_roofline_fraction`` (both of the work
+     that ran) and the device's busy share in (0, 1.05], one line a cell with the top five device ops and the
+     cuts, then the four records through ``roofline_report``;
+ 13. one summary line (the run's seconds and peak device memory) and one
      ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -198,14 +214,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
-
-# Peak device-memory rate (bytes/s) and non-tensor-core rate (FLOP/s) by
-# the name nvidia-smi reports (NVIDIA's data sheets, dense rates).
-_CARDS = {
-    "H100 80GB HBM3": (3.35e12, {"float32": 67e12, "float64": 34e12}),
-    "H100 PCIe": (2.0e12, {"float32": 51e12, "float64": 26e12}),
-    "H100 NVL": (3.9e12, {"float32": 60e12, "float64": 30e12}),
-}
 
 # kernel against plain version: max|Δ| ≤ tol · max|plain|.  With bf16
 # storage both read the same bf16 operands and compute in fp32, so they are
@@ -240,11 +248,15 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def card_rates(name: str) -> tuple:
-    for key, rates in _CARDS.items():
-        if key in name:
-            return rates
-    raise SmokeFailure(f"no peak rates recorded for card {name!r}")
+def card_rates(name: str):
+    """The card's peak rates, from the port's card table
+    (``repro_torch.launch.trace_analysis.CARDS``, by the name nvidia-smi
+    reports; NVIDIA's data sheets, dense rates)."""
+    from repro_torch.launch.trace_analysis import card_rates as rates
+    try:
+        return rates(name)
+    except KeyError as exc:
+        raise SmokeFailure(str(exc)) from None
 
 
 def rel_err(got, want) -> float:
@@ -2475,9 +2487,9 @@ def train_recurrence_rows(trained: dict, card: str, ptxas: dict) -> list:
 def _bound(nbytes: float, ops_count: float, card: str) -> tuple:
     """(bound_ms, bound_by): bytes over the memory rate against fp32
     operations over the card's non-tensor-core rate."""
-    rate, flops = card_rates(card)
-    bytes_ms = nbytes / rate * 1e3
-    ops_ms = ops_count / flops["float32"] * 1e3
+    rates = card_rates(card)
+    bytes_ms = nbytes / rates.hbm_bytes_s * 1e3
+    ops_ms = ops_count / rates.fp32_flops * 1e3
     if bytes_ms >= ops_ms:
         return bytes_ms, "bytes"
     return ops_ms, "operations"
@@ -2678,11 +2690,11 @@ def batch_route_pair(spec, n: int, m: int, storage, card: str, gen) -> dict:
         del got
     del diags, rhs
     torch.cuda.empty_cache()
-    rate, flops = card_rates(card)
+    rates = card_rates(card)
     nbytes = spec.traffic_bytes(n, m, storage)
-    bound_ms = max(nbytes / rate, ops_per_row(spec) * n * m
-                   / flops["float64" if storage == torch.float64
-                           else "float32"]) * 1e3
+    bound_ms = max(nbytes / rates.hbm_bytes_s, ops_per_row(spec) * n * m
+                   / rates.flops("float64" if storage == torch.float64
+                                 else "float32")) * 1e3
     return {"n": n, "m": m, "sweep_route": dataclasses.asdict(picked),
             "ms": turns[picked.name]["ms"],
             "ms_q1": turns[picked.name]["ms_q1"],
@@ -2987,7 +2999,7 @@ def recurrence_entry_times(key: str, card: str, gen) -> dict:
     words = sum(t.numel() for t in leaves) + cot.numel()   # leaves and h
     del leaves, cot
     torch.cuda.empty_cache()
-    rate = card_rates(card)[0]
+    rate = card_rates(card).hbm_bytes_s
     return {"entry_ms": fwd["ms"], "entry_ms_q1": fwd["ms_q1"],
             "entry_ms_q3": fwd["ms_q3"],
             "entry_bound_ms": 4 * words / rate * 1e3,
@@ -3159,7 +3171,7 @@ def fused_times(key: str, launches: int, card: str, gen,
     pipeline = kernel_stats(lambda: step(c))
     del c
     torch.cuda.empty_cache()
-    rate = card_rates(card)[0]
+    rate = card_rates(card).hbm_bytes_s
     traffic = getattr(fused_cn, f"{kind}_traffic_bytes")
     floor = traffic(n, m, torch.float32)["fused"]
     bound_ms, bound_by = _bound(floor, ops_per_elem * n * m, card)
@@ -3262,7 +3274,7 @@ def fused_wide_times(kind: str, launches: int, card: str, gen,
     kernel = getattr(fused_cn, f"{name}_cuda")
     plain = getattr(fused_cn, f"{name}_plain")
     traffic = getattr(fused_cn, f"{kind}_traffic_bytes")
-    rate = card_rates(card)[0]
+    rate = card_rates(card).hbm_bytes_s
     out = {}
     for label, dtype in (("float32", torch.float32),
                          ("float64", torch.float64)):
@@ -3385,6 +3397,120 @@ def phase_times(main: dict, card: str, ptxas: dict) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phases ``analysis`` and ``profile``: the registry checks and the
+# whole-step report
+# ---------------------------------------------------------------------------
+
+def phase_analysis() -> dict:
+    """``repro_torch.analysis``: ``speccheck`` over the registry, then the
+    card-side ``nansweep``: every registry spec and both fused CN steps on
+    every route at the ragged, dead-lane and aligned shapes, each output
+    NaN-filled and fenced, with the counts set to 0 just before it and read
+    just after (one launch a route a shape, under each route's name).
+    Fails on any finding."""
+    import torch
+    from repro_torch.analysis import nansweep, speccheck
+    from repro_torch.kernels import fused_cn, ops
+
+    t0 = time.perf_counter()
+    findings = speccheck.run()
+    check(not findings, "speccheck: " + "; ".join(map(str, findings[:10])))
+    want: dict = {}
+    for subject, layout, spec in nansweep.kinds():
+        for route in nansweep.routes(layout, spec):
+            key = subject if layout != "fused" else fused_cn.launch_name(
+                subject.split("_")[-1], route[0])
+            want[key] = want.get(key, 0) + len(nansweep.CASES)
+    ops.reset_launches()
+    findings = nansweep.run("cuda")
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    check(not findings, "nansweep: " + "; ".join(map(str, findings[:10])))
+    check(launches == want, f"analysis: launches {launches}, expected "
+          f"{want}")
+    row = {"phase": "analysis", "seconds": time.perf_counter() - t0,
+           "speccheck_findings": 0, "nansweep_findings": 0,
+           "launches": launches}
+    emit(row)
+    return row
+
+
+# The cells of phase ``profile``: (name, arch, shape, cuts, hand-kernel
+# launches a step).  P1 runs all 24 layers at the batch that fits, P2 the
+# batch of (p), P3 one group and the tail (5 layers) at B 1, P4 all 40
+# layers at the batch that leaves 10 GB of the card free.
+PROFILE_CELLS = (
+    ("P1", "mamba2-130m", "prefill_32k", {}, {"recur1": 24}),
+    ("P2", "mamba2-130m", "train_4k", {"batch": 8},
+     {"recur1": 48, "recur1_rev": 24}),
+    ("P3", "recurrentgemma-9b", "prefill_32k", {"layers": 5, "batch": 1},
+     {"recur1": 4}),
+    ("P4", "granite-3-8b", "decode_32k", {}, {}),
+)
+#: A share no card can give: above it the count, not the card, is wrong.
+SHARE_CAP = 1.05
+
+
+def phase_profile(smi: str) -> list:
+    """The measured leg of ``repro_torch.launch.dryrun`` on the cells of
+    ``PROFILE_CELLS``, at full width with the cuts the record lists: one
+    warm-up step, one timed by CUDA events, one traced.  Each step's
+    hand-kernel launches (the counts set to 0 just before it and read just
+    after) must equal the cell's, and the trace's must equal the counter's;
+    P3's four on the tile route (N 32768 x M 4096).  ``mfu``,
+    ``measured_roofline_fraction`` and ``busy_share``, each of the work
+    that ran, must lie in (0, 1.05].  One line a cell (with the
+    reference's ``mfu_reference`` beside), then the four records through
+    ``roofline_report``."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, roofline_report
+
+    t0 = time.perf_counter()
+    check(ops.recurrence_route(32768, 4096, torch.bfloat16, 1).name
+          == "tile", "P3's RG-LRU operand should take the tile route")
+    records = []
+    for name, arch, shape, cuts, want in PROFILE_CELLS:
+        _free_device()
+        rec = dryrun.measure_cell(arch, shape, seed=SEED, **cuts)
+        check(rec["status"] == "ok", f"{name}: {rec.get('reason')}")
+        got = rec["launches"]
+        check(got["timed"] == want and got["traced"] == want,
+              f"{name}: launches {got}, expected {want} a step")
+        check(rec["trace"]["hand_launches"] == got["traced"],
+              f"{name}: the trace shows {rec['trace']['hand_launches']}, "
+              f"the counter {got['traced']}")
+        if name == "P3":
+            tile = sum(n for k, n in rec["trace"]["kernel_launches"].items()
+                       if k.startswith("recurrence_tile_kernel"))
+            check(tile == 4, f"P3: {tile} launches of the tile kernel")
+        for key in ("mfu", "measured_roofline_fraction", "busy_share"):
+            check(0 < rec[key] <= SHARE_CAP,
+                  f"{name}: {key} {rec[key]:.4g} outside (0, {SHARE_CAP}]")
+        emit({"phase": "profile", "cell": name, "arch": arch,
+              "shape": shape, "batch": rec["batch"], "seq": rec["seq"],
+              "measured_s": rec["measured_s"], "mfu": rec["mfu"],
+              "mfu_reference": rec["mfu_reference"],
+              "measured_roofline_fraction":
+                  rec["measured_roofline_fraction"],
+              "busy_share": rec["busy_share"],
+              "bound_s": rec["roofline_ran"]["bound_s"],
+              "dominant": rec["roofline_ran"]["dominant"],
+              "top_ops_ms": rec["trace"]["top_kernels_ms"],
+              "device_ms_by_class": rec["trace"]["device_ms_by_class"],
+              "kernel_floors": rec["kernel_floors"],
+              "launches": got["traced"], "reduced": rec["reduced"],
+              "fit": rec.get("fit"),
+              "peak_device_bytes": rec["peak_device_bytes"],
+              "card": smi})
+        rec["cell"] = name
+        records.append(rec)
+    print(roofline_report.render(records, markdown=True), flush=True)
+    emit({"phase": "profile", "seconds": time.perf_counter() - t0})
+    return records
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--routes", action="store_true",
@@ -3473,6 +3599,8 @@ def main(argv=None) -> int:
         kernels += train_recurrence_rows(trained, card, ptxas)
         peaks += [trained["peak_device_bytes"],
                   trained["hybrid_peak_device_bytes"]]
+        phase_analysis()
+        peaks += [rec["peak_device_bytes"] for rec in phase_profile(smi)]
         emit({"phase": "summary", "seconds": time.perf_counter() - start,
               "peak_device_bytes": max(peaks)})
         print(json.dumps({"kernels": kernels}), flush=True)

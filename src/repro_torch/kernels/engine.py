@@ -103,7 +103,7 @@ _RECUR_TABLE = {
 
 
 def _itemsize(dtype) -> int:
-    return torch.empty((), dtype=dtype).element_size()
+    return dtype.itemsize
 
 
 def compute_dtype(dtype) -> torch.dtype:

@@ -104,7 +104,7 @@ def penta_params(pf, sigma: float, dtype) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _itemsize(dtype) -> int:
-    return torch.empty((), dtype=dtype).element_size()
+    return dtype.itemsize
 
 
 def route(n: int, dtype) -> tuple:
@@ -380,11 +380,12 @@ def _check_chunks(name: str, rows: int, dtype, bandwidth: int,
 
 
 def _fused_launch(kind: str, bandwidth: int, operands: dict, c: torch.Tensor,
-                  which: str | None, chunks: int | None) -> tuple:
+                  which: str | None, chunks: int | None, out=None) -> tuple:
     """Validate device, dtype and contiguity, pick the route (``which``, or
     ``route(N, dtype)`` when None), its row blocks and the tile routes'
     chunks (``chunks``, or ``chunk_count`` of a block's rows), allocate x
-    (and the partitioned route's workspace).  ``operands`` are lhs, z / Z,
+    (and the partitioned route's workspace; x is ``out`` when given).
+    ``operands`` are lhs, z / Z,
     [Minv,] params in the C argument order.  Returns ``(launch(stage), x,
     route)``: ``launch(stage)`` runs the ``fused_cn`` entry point of
     ``csrc/fused_cn.cu``, the whole step (stage 0) or one of the
@@ -423,7 +424,7 @@ def _fused_launch(kind: str, bandwidth: int, operands: dict, c: torch.Tensor,
         if bandwidth == 5 and operands["Z"].data_ptr() % 16:
             raise ValueError(f"{name}: the tile routes read a row of Z as "
                              "16-byte loads; Z must be 16-byte aligned")
-    x = torch.empty_like(c)
+    x = _ops.output_buffer(name, out, (n, m), c.dtype, c.device)
     work = None
     if which == "partition" and m:
         order = bandwidth // 2
@@ -453,14 +454,16 @@ def _fused_launch(kind: str, bandwidth: int, operands: dict, c: torch.Tensor,
 
 
 def _launch(kind: str, bandwidth: int, operands: dict, c: torch.Tensor,
-            which: str | None, chunks: int | None) -> torch.Tensor:
+            which: str | None, chunks: int | None, out=None) -> torch.Tensor:
     """One step on the route ``which`` (default: ``route``'s), counted
     once in ``LAUNCHES`` under ``launch_name``."""
     launch, x, which = _fused_launch(kind, bandwidth, operands, c, which,
-                                     chunks)
+                                     chunks, out)
     launch()
-    key = launch_name(kind, which)
-    _ops.LAUNCHES[key] = _ops.LAUNCHES.get(key, 0) + 1
+    traffic = tridiag_traffic_bytes if kind == "tridiag" \
+        else penta_traffic_bytes
+    _ops.count_launch(launch_name(kind, which),
+                      traffic(*c.shape, c.dtype)["fused"])
     return x
 
 
@@ -519,24 +522,26 @@ def onchip_blocks_per_sm(n: int, dtype, bandwidth: int,
 
 
 def fused_cn_tridiag_cuda(lhs, z, params, c, *, route: str | None = None,
-                          chunks: int | None = None) -> torch.Tensor:
+                          chunks: int | None = None,
+                          out: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the diffusion step of ``csrc/fused_cn.cu`` on the route
     ``route(N, dtype)`` picks, or on the one forced here (``"onchip"``,
     ``"partition"`` or ``"global"``); the tile routes in ``chunk_count``
     chunks of a row block, or in ``chunks`` (to time others).  Raises on
     a route that cannot take N; nothing falls back."""
     return _launch("tridiag", 3, _operands("tridiag", (lhs, z, params), c),
-                   c, route, chunks)
+                   c, route, chunks, out)
 
 
 def fused_cn_penta_cuda(lhs, zz, minv, params, c, *,
                         route: str | None = None,
-                        chunks: int | None = None) -> torch.Tensor:
+                        chunks: int | None = None,
+                        out: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the hyperdiffusion step of ``csrc/fused_cn.cu`` as
     ``fused_cn_tridiag_cuda`` launches the diffusion step."""
     return _launch("penta", 5,
                    _operands("penta", (lhs, zz, minv, params), c), c, route,
-                   chunks)
+                   chunks, out)
 
 
 def _dispatch(name: str, cuda_fn, plain_fn, operands: tuple, c):
@@ -594,7 +599,7 @@ def tridiag_traffic_bytes(n: int, m: int, dtype=torch.float32) -> dict:
     written once, the factor and the parameters read once) against the
     paper's three-kernel pipeline: ``repro.kernels.fused_cn``'s
     ``hbm_traffic_bytes``."""
-    itemsize = torch.empty((), dtype=dtype).element_size()
+    itemsize = dtype.itemsize
     return {"fused": (2 * n * m + 4 * n + 8) * itemsize,
             "unfused_pipeline": (6 * n * m + 4 * n + 8) * itemsize}
 
@@ -602,6 +607,6 @@ def tridiag_traffic_bytes(n: int, m: int, dtype=torch.float32) -> dict:
 def penta_traffic_bytes(n: int, m: int, dtype=torch.float32) -> dict:
     """The same for one CN hyperdiffusion step:
     ``repro.kernels.fused_cn_penta``'s ``hbm_traffic_bytes``."""
-    itemsize = torch.empty((), dtype=dtype).element_size()
+    itemsize = dtype.itemsize
     return {"fused": (2 * n * m + 9 * n + 32) * itemsize,
             "unfused_pipeline": (6 * n * m + 9 * n + 32) * itemsize}

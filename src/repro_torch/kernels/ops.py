@@ -58,8 +58,13 @@ The gated recurrences (``h_i = p_i h_{i-1} + q_i`` and order 2):
     order; ``recurrence_cuda`` takes a forced ``route=`` and ``chunks=``,
     to time them.
 
-``LAUNCHES`` counts the kernels' launches by spec name; it is bumped
-where a kernel launches and nowhere else.
+``LAUNCHES`` counts the kernels' launches by spec name, and
+``LAUNCH_BYTES`` the least bytes those launches must move (each input read
+once, each output written once); both are bumped where a kernel launches
+and nowhere else.  The ``*_cuda`` wrappers take an internal ``out=``, a
+buffer the kernel writes x into, so that a check can fill it first
+(``repro_torch.analysis.nansweep`` fills it with NaN to show every element
+written).
 """
 
 from __future__ import annotations
@@ -100,6 +105,9 @@ _ARGTYPES = {
 
 #: Kernel launches by spec name (``thomas_constant``, ``penta_uniform_t``…).
 LAUNCHES: dict = {}
+#: The byte floor of those launches by spec name: the traffic a launch
+#: must move at its operands' shapes and types.
+LAUNCH_BYTES: dict = {}
 
 DEFAULT_THREADS = 256
 # The tile kernels' geometry, as in ``csrc/shared_sweep.cu`` and
@@ -152,6 +160,26 @@ _STORAGE_ALIASES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    LAUNCH_BYTES.clear()
+
+
+def count_launch(name: str, nbytes: int) -> None:
+    """One launch of ``name``, moving at least ``nbytes``."""
+    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    LAUNCH_BYTES[name] = LAUNCH_BYTES.get(name, 0) + nbytes
+
+
+def output_buffer(name: str, out, shape: tuple, dtype, device
+                  ) -> torch.Tensor:
+    """``out`` once it is a contiguous ``shape`` tensor of ``dtype`` on
+    ``device``; a new ``torch.empty`` when it is None."""
+    if out is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    if (tuple(out.shape) != tuple(shape) or out.dtype != dtype
+            or out.device != device or not out.is_contiguous()):
+        raise ValueError(f"{name}: out must be a contiguous {tuple(shape)} "
+                         f"{dtype} tensor on {device}")
+    return out
 
 
 def canonical_storage_dtype(storage_dtype):
@@ -206,7 +234,7 @@ def _uniform_eps_param(f, dtype) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _compute_itemsize(dtype) -> int:
-    return torch.empty((), dtype=compute_dtype(dtype)).element_size()
+    return compute_dtype(dtype).itemsize
 
 
 def onchip_max_rows(dtype) -> int:
@@ -602,7 +630,8 @@ def _kernel(name: str):
     return fn
 
 
-def _shared_launch(spec, lhs, rhs, eps, route, chunks, tile_m) -> tuple:
+def _shared_launch(spec, lhs, rhs, eps, route, chunks, tile_m,
+                   out=None) -> tuple:
     """Validate the operands and the route, allocate x (and the partitioned
     route's workspace); returns ``(launch(stage), x)``, where
     ``launch(stage)`` runs the whole solve (stage 0) or one of K0–K3
@@ -636,7 +665,7 @@ def _shared_launch(spec, lhs, rhs, eps, route, chunks, tile_m) -> tuple:
     if n and m:
         _check_split(n, picked.row_blocks, chunks)
     cdt = compute_dtype(rhs.dtype)
-    out = torch.empty((n, m), dtype=cdt, device=rhs.device)
+    out = output_buffer("shared_sweep", out, (n, m), cdt, rhs.device)
     work = None
     if picked.name == "partition" and m:
         order, b = spec.order, picked.row_blocks
@@ -666,16 +695,18 @@ def _shared_launch(spec, lhs, rhs, eps, route, chunks, tile_m) -> tuple:
 def shared_sweep_cuda(spec: SweepSpec, lhs: torch.Tensor, rhs: torch.Tensor,
                       eps: torch.Tensor | None = None, *,
                       route: str | None = None, chunks: int | None = None,
-                      tile_m: int | None = None) -> torch.Tensor:
+                      tile_m: int | None = None,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
     """Launch ``csrc/shared_sweep.cu`` on the current stream, on the route
     ``shared_route(N, dtype)`` picks.  ``route``, ``chunks`` and ``tile_m``
     force another choice, to time one against another; a route that cannot
     take N raises, and nothing falls back.  Validates device, dtype, shape
     and contiguity and raises on what the kernel does not take; raises when
     a launch reports a CUDA error.  Counts one launch a solve."""
-    launch, out = _shared_launch(spec, lhs, rhs, eps, route, chunks, tile_m)
+    launch, out = _shared_launch(spec, lhs, rhs, eps, route, chunks, tile_m,
+                                 out)
     launch()
-    LAUNCHES[spec.name] = LAUNCHES.get(spec.name, 0) + 1
+    count_launch(spec.name, spec.traffic_bytes(*rhs.shape, rhs.dtype))
     return out
 
 
@@ -1082,16 +1113,18 @@ def batch_sweep_plain(spec: SweepSpec, diags, rhs: torch.Tensor, *,
 
 
 def batch_sweep_cuda(spec: SweepSpec, diags, rhs: torch.Tensor, *,
-                     route: str | None = None) -> torch.Tensor:
+                     route: str | None = None, chunks: int | None = None,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
     """Launch ``csrc/batch_sweep.cu`` on the current stream, on the route
     ``batch_route(N, dtype, bandwidth)`` picks, in its chunks; the stream
     route's (order, N, M) coefficient workspace is allocated here, the
     on-chip route needs none.  ``route`` forces the other route, to time
-    one against the other; a route that cannot take the system raises,
-    and nothing falls back.  Validates device, dtype, shape and contiguity
-    and raises on what the kernel does not take; raises when the launch
-    reports a CUDA error.  Counts one launch a solve under the spec's
-    name."""
+    one against the other, and ``chunks`` the on-chip route's row chunks
+    (1..``batch_onchip_chunks``, at most ``BATCH_ROWS`` rows each); a route
+    that cannot take the system raises, and nothing falls back.  Validates
+    device, dtype, shape and contiguity and raises on what the kernel does
+    not take; raises when the launch reports a CUDA error.  Counts one
+    launch a solve under the spec's name."""
     n, m = rhs.shape
     operands = [*diags, rhs]
     if spec.layout != "batch" or len(diags) != spec.bandwidth:
@@ -1109,8 +1142,17 @@ def batch_sweep_cuda(spec: SweepSpec, diags, rhs: torch.Tensor, *,
     if not all(t.is_contiguous() for t in operands):
         raise ValueError("batch_sweep: operands must be contiguous")
     picked = batch_route(n, rhs.dtype, spec.bandwidth, route)
+    if chunks is not None:
+        most = batch_onchip_chunks(rhs.dtype)
+        if picked.name != "onchip" or not (
+                1 <= chunks <= most and -(-n // chunks) <= BATCH_ROWS):
+            raise ValueError(f"batch_sweep: chunks={chunks} needs the "
+                             f"on-chip route, 1..{most} chunks of at most "
+                             f"{BATCH_ROWS} rows")
+        picked = dataclasses.replace(picked, chunks=chunks,
+                                     rows=-(-n // chunks))
     cdt = compute_dtype(rhs.dtype)
-    out = torch.empty((n, m), dtype=cdt, device=rhs.device)
+    out = output_buffer("batch_sweep", out, (n, m), cdt, rhs.device)
     if n == 0 or m == 0:
         return out
     # ``work`` is freed on return while the kernel may still run: the
@@ -1130,7 +1172,7 @@ def batch_sweep_cuda(spec: SweepSpec, diags, rhs: torch.Tensor, *,
     if rc != 0:
         raise RuntimeError(f"batch_sweep ({picked.name} route) launch "
                            f"failed: CUDA error {rc}")
-    LAUNCHES[spec.name] = LAUNCHES.get(spec.name, 0) + 1
+    count_launch(spec.name, spec.traffic_bytes(n, m, rhs.dtype))
     return out
 
 
@@ -1319,8 +1361,8 @@ def route_plain(spec: RecurrenceSpec, gates, q: torch.Tensor,
 
 
 def recurrence_cuda(spec: RecurrenceSpec, gates, q: torch.Tensor, *,
-                    route: str | None = None, chunks: int | None = None
-                    ) -> torch.Tensor:
+                    route: str | None = None, chunks: int | None = None,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
     """Launch ``csrc/recurrence_sweep.cu`` on the current stream, on the
     route ``recurrence_route`` picks or on ``route`` forced; ``chunks``
     overrides the tile's chunks a block, to time it.  Validates device, dtype, shape and contiguity and raises on what
@@ -1340,7 +1382,7 @@ def recurrence_cuda(spec: RecurrenceSpec, gates, q: torch.Tensor, *,
     if not all(t.is_contiguous() for t in operands):
         raise ValueError("recurrence: operands must be contiguous")
     picked = recurrence_tuned(n, m, q.dtype, spec.order, route, chunks)
-    out = torch.empty((n, m), dtype=q.dtype, device=q.device)
+    out = output_buffer("recurrence", out, (n, m), q.dtype, q.device)
     if n == 0 or m == 0:
         return out
     fn = _kernel("recurrence_sweep")
@@ -1354,7 +1396,7 @@ def recurrence_cuda(spec: RecurrenceSpec, gates, q: torch.Tensor, *,
     if rc != 0:
         raise RuntimeError(f"recurrence ({picked.name} route) launch "
                            f"failed: CUDA error {rc}")
-    LAUNCHES[spec.name] = LAUNCHES.get(spec.name, 0) + 1
+    count_launch(spec.name, spec.traffic_bytes(n, m, q.dtype))
     return out
 
 

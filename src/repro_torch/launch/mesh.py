@@ -32,11 +32,17 @@ def mesh_over_ranks(shape: Sequence[int], axes: Sequence[str], *,
         DeviceMesh(device_type, ranks, mesh_dim_names=tuple(axes)))
 
 
+def production_shape(*, multi_pod: bool = False) -> tuple:
+    """``(shape, axes)`` of the production mesh: 16x16 = 256 devices a pod
+    ("data", "model"); 2 pods = 512 with a leading "pod" axis."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
-    """16x16 = 256 devices a pod ("data", "model"); 2 pods = 512 with a
-    leading "pod" axis."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    """The ``production_shape`` mesh over the default group's ranks."""
+    shape, axes = production_shape(multi_pod=multi_pod)
     n = math.prod(shape)
     have = dist.get_world_size() if dist.is_initialized() else 1
     if have < n:

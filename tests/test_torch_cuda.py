@@ -919,3 +919,27 @@ def test_sharded_ranks_on_card_match_single_process(cuda_device, tmp_path):
             assert row["launches"] == (1 if kernel else 0), row
             assert row["columns"] == (501 if r == 0 else 500)
             assert row["bitwise"], row
+
+
+def test_nansweep_on_the_card_finds_nothing(cuda_device):
+    """Every spec and fused step on every route at the ragged, dead-lane
+    and aligned shapes, each output NaN-filled and fenced: every element
+    written, finite, and nothing written past it."""
+    from repro_torch.analysis import nansweep
+    assert nansweep.run("cuda") == []
+
+
+def test_measured_leg_on_the_card(cuda_device):
+    """The dry run's measured leg at mamba2-130m's width, 2 layers, B 1:
+    one ``recur1`` a layer in the timed and the traced step, the trace's
+    launches equal to the counter's, every share in (0, 1]."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.measure_cell("mamba2-130m", "prefill_32k", layers=2,
+                              batch=1)
+    assert rec["status"] == "ok"
+    assert rec["reduced"] == ["n_layers 24 -> 2", "batch 32 -> 1 (as asked)"]
+    assert rec["launches"] == {"timed": {"recur1": 2},
+                               "traced": {"recur1": 2}}
+    assert rec["trace"]["hand_launches"] == {"recur1": 2}
+    for key in ("mfu", "measured_roofline_fraction", "busy_share"):
+        assert 0 < rec[key] <= 1, (key, rec[key])

@@ -37,11 +37,14 @@ print(len(names), ",".join(subpackages), ",".join(leaked))
 # sharding rules, the data, optimizer, checkpoint and fault-tolerance
 # modules, and the multi-device ones on torch.distributed (the sharded
 # solver, the mesh builders, the compressed mean, the pipeline and elastic
-# restore) among them
-SUBPACKAGES = ["ckpt", "configs", "convert", "core", "data", "kernels",
-               "launch", "models", "pde", "runtime", "sharding", "solver",
-               "train"]
-MODULES = 64
+# restore) among them, the cost model and profiler report
+# (``launch.{analytic_cost,trace_analysis,dryrun,roofline_report}``) and
+# the registry checks (``analysis``: its package, ``__main__``,
+# ``speccheck``, ``nansweep``)
+SUBPACKAGES = ["analysis", "ckpt", "configs", "convert", "core", "data",
+               "kernels", "launch", "models", "pde", "runtime", "sharding",
+               "solver", "train"]
+MODULES = 72
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
