@@ -171,11 +171,19 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
      adjoint, give its share of a step; (q)'s (N 2048 × M 4096) are timed
      too;
  11. phase ``analysis``: ``repro_torch.analysis.speccheck`` over the
-     sweep registry, then ``nansweep`` on the card: every registry spec
-     and both fused CN steps on every route of the four CUDA sources at
-     the ragged, dead-lane and aligned shapes, each output NaN-filled and
-     fenced by NaN guards (every element written and finite, nothing
-     written past it), one launch a route a shape, read from the counts;
+     sweep registry (with the operand recount of the traffic model), then
+     ``nansweep`` on the card: every registry spec and both fused CN steps
+     on every route of the four CUDA sources at the ragged, dead-lane and
+     aligned shapes, each output NaN-filled and fenced by NaN guards
+     (every element written and finite, nothing written past it), one
+     launch a route a shape, read from the counts; ``tracecheck`` on the
+     kernels (every pure backend x mode x boundary condition and the 8
+     recurrence cases, forward, transposed and backward, under a dispatch
+     mode that raises on a value brought to the host and under
+     ``torch.cuda.set_sync_debug_mode("error")``; exactly the launches of
+     the cases it ran) and the lint; ``gridcheck``, every route rule's row
+     spans over its N grid held against each CUDA source's
+     ``<source>_spans`` export; the mutation self-test (8 classes);
  12. phase ``profile``: the measured leg of ``repro_torch.launch.dryrun``
      on P1 mamba2-130m ``prefill_32k`` (24 layers, the batch that leaves
      10 GB free), P2 mamba2-130m ``train_4k`` (B 8), P3 recurrentgemma-9b
@@ -3403,19 +3411,33 @@ def phase_times(main: dict, card: str, ptxas: dict) -> list:
 # ---------------------------------------------------------------------------
 
 def phase_analysis() -> dict:
-    """``repro_torch.analysis``: ``speccheck`` over the registry, then the
-    card-side ``nansweep``: every registry spec and both fused CN steps on
-    every route at the ragged, dead-lane and aligned shapes, each output
-    NaN-filled and fenced, with the counts set to 0 just before it and read
-    just after (one launch a route a shape, under each route's name).
-    Fails on any finding."""
+    """``repro_torch.analysis`` on the card, each part with the counts set
+    to 0 just before it and read just after: ``speccheck`` over the
+    registry (with the traffic recount); the card-side ``nansweep`` (every
+    registry spec and both fused CN steps on every route at the ragged,
+    dead-lane and aligned shapes, each output NaN-filled and fenced: one
+    launch a route a shape, under each route's name); ``tracecheck`` on the
+    kernels (every pure backend x bandwidth x mode x boundary condition
+    and the 8 recurrence cases, forward, transposed and backward, under
+    ``HostSyncMode`` and ``torch.cuda.set_sync_debug_mode("error")``, the
+    sharded cells in a one-rank gloo group under the former alone; its
+    launches exactly those of the cases it ran, its skips JAX's); then the
+    lint; ``gridcheck`` with every CUDA source's ``<source>_spans`` export
+    held against the Python rules over the whole grid (no launch); the
+    mutation self-test on the CPU (every class caught, every patched object
+    restored, no launch).  Fails on any finding."""
     import torch
-    from repro_torch.analysis import nansweep, speccheck
+    from repro_torch.analysis import (gridcheck, mutation, nansweep,
+                                      speccheck, tracecheck)
     from repro_torch.kernels import fused_cn, ops
 
     t0 = time.perf_counter()
+    seconds = {}
     findings = speccheck.run()
     check(not findings, "speccheck: " + "; ".join(map(str, findings[:10])))
+    seconds["speccheck"] = time.perf_counter() - t0
+
+    t = time.perf_counter()
     want: dict = {}
     for subject, layout, spec in nansweep.kinds():
         for route in nansweep.routes(layout, spec):
@@ -3427,11 +3449,66 @@ def phase_analysis() -> dict:
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     check(not findings, "nansweep: " + "; ".join(map(str, findings[:10])))
-    check(launches == want, f"analysis: launches {launches}, expected "
-          f"{want}")
+    check(launches == want, f"analysis: nansweep launches {launches}, "
+          f"expected {want}")
+    seconds["nansweep"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    cases = tracecheck.contract_cases()
+    ops.reset_launches()
+    traced = tracecheck.sweep("cuda")
+    torch.cuda.synchronize()
+    trace_launches = dict(ops.LAUNCHES)
+    check(not traced.findings,
+          "tracecheck: " + "; ".join(map(str, traced.findings[:10])))
+    skips = sorted(tracecheck.subject(*c) for c in cases
+                   if c[0] == "cuda" and c[2] == "batch" and c[3])
+    check(sorted(traced.skips) == skips, f"tracecheck skipped "
+          f"{traced.skips}, expected JAX's cells {skips}")
+    check(traced.cases + len(traced.skips) == len(cases),
+          f"tracecheck ran {traced.cases} of {len(cases)} cells")
+    check(traced.recurrences == len(tracecheck.recurrence_cases()),
+          f"tracecheck ran {traced.recurrences} recurrence cases")
+    check(trace_launches == traced.launches, f"tracecheck launches "
+          f"{trace_launches}, expected {traced.launches}")
+    check(torch.cuda.get_sync_debug_mode() == 0,
+          "tracecheck left the sync debug mode set")
+    seconds["tracecheck"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    ops.reset_launches()
+    grid = gridcheck.sweep("cuda")
+    check(not grid.findings,
+          "gridcheck: " + "; ".join(map(str, grid.findings[:10])))
+    check(grid.spans > 0 and grid.compared == grid.spans,
+          f"gridcheck compared {grid.compared} of {grid.spans} spans with "
+          f"the CUDA sources")
+    check(not ops.LAUNCHES, f"gridcheck launched {dict(ops.LAUNCHES)}")
+    seconds["gridcheck"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    before = mutation.patch_targets()
+    ops.reset_launches()
+    results = mutation.self_test()
+    after = mutation.patch_targets()
+    missed = [r.name for r in results if not r.detected]
+    check(not missed and len(results) == len(mutation._MUTATIONS),
+          f"mutation self-test missed {missed}")
+    check(all(after[k] is before[k] for k in before),
+          "the mutation self-test left a patched object behind")
+    check(not ops.LAUNCHES, f"the self-test launched {dict(ops.LAUNCHES)}")
+    seconds["mutation"] = time.perf_counter() - t
+
     row = {"phase": "analysis", "seconds": time.perf_counter() - t0,
-           "speccheck_findings": 0, "nansweep_findings": 0,
-           "launches": launches}
+           "part_seconds": seconds, "speccheck_findings": 0,
+           "nansweep_findings": 0, "launches": launches,
+           "tracecheck": {"cells": traced.cases, "skips": traced.skips,
+                          "recurrences": traced.recurrences,
+                          "lint_findings": traced.lint_findings,
+                          "launches": trace_launches},
+           "gridcheck": {"rules": grid.rules, "spans": grid.spans,
+                         "compared_with_cuda": grid.compared},
+           "mutation": {r.name: len(r.evidence) for r in results}}
     emit(row)
     return row
 

@@ -1,13 +1,17 @@
-"""CLI: ``python -m repro_torch.analysis`` — verify the port's registry.
+"""CLI: ``python -m repro_torch.analysis`` — verify the port's sweep layer.
 
-Exit code 0 = clean, 1 = findings.  Modes:
+Exit code 0 = clean, 1 = findings (or a missed mutation).  Modes:
 
-  (default)     run speccheck
-  --nan-sweep   run the registry-driven sweep of every kernel route on
-                ``--device`` (default ``cuda``: the kernels with NaN-filled
-                outputs, which raises without a card; ``cpu``: the plain
-                versions under the non-finite guard)
-  --all         both
+  (default)     run speccheck + gridcheck + tracecheck (with the lint)
+  --self-test   run the mutation self-test (each seeded defect class must
+                be caught by its checker; on the CPU)
+  --nan-sweep   run the registry-driven sweep of every kernel route
+  --all         everything above
+
+``--device`` (default ``cuda``, which raises without a card) is where the
+checkers run: on the card the kernels, gridcheck against the CUDA sources'
+span exports and tracecheck under the sync debug mode too; ``cpu`` the
+plain versions.
 """
 
 from __future__ import annotations
@@ -19,16 +23,22 @@ import sys
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis",
-        description="Verification of the port's sweep registry: pass-table "
-                    "invariants and accounting, and a NaN / write-coverage "
-                    "sweep of every kernel route.")
+        description="Verification of the port's sweep layer: pass-table "
+                    "invariants and the traffic recount, every route's row "
+                    "spans, the host-sync contract, a mutation self-test "
+                    "and a NaN / write-coverage sweep of every kernel "
+                    "route.")
+    parser.add_argument("--self-test", action="store_true",
+                        help="mutation self-test: seed known defect classes "
+                             "and require the checkers to catch each")
     parser.add_argument("--nan-sweep", action="store_true",
                         help="registry-driven ragged/dead-lane/aligned sweep "
                              "of every route")
     parser.add_argument("--all", action="store_true",
-                        help="checkers + nan-sweep")
+                        help="checkers + self-test + nan-sweep")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                        help="where the nan-sweep runs (default: cuda)")
+                        help="where the checkers and the nan-sweep run "
+                             "(default: cuda)")
     parser.add_argument("-q", "--quiet", action="store_true",
                         help="suppress per-checker progress lines")
     args = parser.parse_args(argv)
@@ -38,15 +48,30 @@ def main(argv=None) -> int:
     from . import run_all
     verbose = not args.quiet
     failed = False
+    run_checkers = args.all or not (args.self_test or args.nan_sweep)
 
-    if args.all or not args.nan_sweep:
-        findings = run_all(verbose=verbose)
+    if run_checkers:
+        findings = run_all(verbose=verbose, device=args.device)
         for f in findings:
             print(f, file=sys.stderr)
         failed = bool(findings)
         if verbose and not findings:
-            print(f"speccheck clean: {len(REGISTRY)} registered specs, "
-                  f"0 findings")
+            print(f"speclint clean on {args.device}: {len(REGISTRY)} "
+                  f"registered specs, 0 findings")
+
+    if args.self_test or args.all:
+        from . import mutation
+        if verbose:
+            print("mutation self-test:")
+        results = mutation.self_test(verbose=verbose)
+        missed = [r.name for r in results if not r.detected]
+        if missed:
+            print(f"mutation self-test MISSED: {', '.join(missed)}",
+                  file=sys.stderr)
+            failed = True
+        elif verbose:
+            print(f"mutation self-test: {len(results)}/{len(results)} "
+                  f"defect classes caught")
 
     if args.nan_sweep or args.all:
         from . import nansweep

@@ -100,6 +100,43 @@ class NonFiniteMode(TorchDispatchMode):
         return out
 
 
+#: Ops through which a tensor's value reaches the host: ``.item()``,
+#: ``float(t)``, ``int(t)`` and ``bool(t)`` reach ``_local_scalar_dense``;
+#: ``nonzero`` sizes its output from the values.
+HOST_SYNC_OPS = ("aten::_local_scalar_dense", "aten::is_nonzero",
+                 "aten::nonzero", "aten::equal")
+
+
+class HostSyncError(RuntimeError):
+    """A tensor's value was brought to the host inside ``HostSyncMode``."""
+
+
+class HostSyncMode(TorchDispatchMode):
+    """Raise ``HostSyncError`` on the first op through which a tensor's
+    value reaches the host: one of ``HOST_SYNC_OPS`` (raised before it
+    runs), or a copy from a CUDA tensor into a CPU one.  The counterpart,
+    on a run, of JAX's concretization error on a traced value; on the card
+    ``torch.cuda.set_sync_debug_mode("error")`` is the second guard.  Sees
+    the ops the port's Python code calls (autograd's backward included),
+    not those a kernel or a tensor subclass runs inside one."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func._schema.name
+        if name in HOST_SYNC_OPS:
+            raise HostSyncError(f"{name} brings a tensor's value to the host "
+                                "(a host sync)")
+        out = func(*args, **(kwargs or {}))
+        inputs = tree_leaves((args, kwargs))
+        if any(isinstance(t, torch.Tensor) and t.is_cuda for t in inputs):
+            written = (args[:1] if name == "aten::copy_"
+                       else tree_leaves(out))
+            if any(isinstance(t, torch.Tensor) and t.device.type == "cpu"
+                   for t in written):
+                raise HostSyncError(f"{name} copies a CUDA tensor to the "
+                                    "host (a host sync)")
+        return out
+
+
 def kinds() -> list:
     """``(subject, layout, spec)`` of everything swept: the registry's specs,
     then the fused steps."""

@@ -32,10 +32,18 @@ and 4 a computed one, and the per-rank traffic of the sharded backend
 rank) is the single-device count at ``shard_lanes`` columns, the
 replicated LHS rows the only words that do not split.
 
-The reference's streamed and fused sibling checks and its recount of the
-traffic from the captured Pallas builders have no counterpart: the port
-registers no streamed or fused spec (one Hopper kernel serves each
-tiling), and its CUDA sources are not traced.
+The traffic model is held against an independent recount: the port does
+not trace its CUDA sources, so ``capture`` stands in for the reference's
+captured Pallas builders by reading what each kernel's entry point is
+handed (every spec and both fused CN steps, at the trace size, at fp32
+and bf16 storage, the fused steps at fp32 and fp64) and summing the bytes
+of every operand read once and of the output written once.  The recount
+must equal ``traffic_words`` / ``traffic_bytes`` as the launch counter
+books them, and ``fused_cn.{tridiag,penta}_traffic_bytes``: the floors
+``kernel_floors`` and the benchmark's bounds read cannot drift from the
+operands.  The reference's streamed and fused sibling checks have no
+counterpart: the port registers no streamed or fused spec (one Hopper
+kernel serves each tiling).
 """
 
 from __future__ import annotations
@@ -48,10 +56,8 @@ from repro_torch.kernels import engine
 from repro_torch.kernels.engine import EPS_PARAM, RecurrenceSpec, SweepSpec
 from repro_torch.solver.sharded import shard_lanes
 
-from . import Finding
-
-#: The (N, M) the accounting checks price (the reference's trace size).
-TRACE_N, TRACE_M = 48, 24
+from . import Finding, capture
+from .capture import TRACE_N, TRACE_M  # the (N, M) the accounting prices
 
 
 def scale_row(spec: SweepSpec) -> int:
@@ -300,8 +306,31 @@ def _check_sharded_traffic(spec, out: list) -> None:
                 f"({want})"))
 
 
+def _check_traffic_recount(out: list) -> None:
+    """``capture``'s operand recount against the model, in words and in
+    bytes, for every spec and fused step at each storage type."""
+    n, m = TRACE_N, TRACE_M
+    for rec in capture.recount_all():
+        tag = str(rec.dtype).split(".")[-1]
+        words = capture.modelled_words(rec.subject, n, m)
+        nbytes = capture.modelled_bytes(rec.subject, n, m, rec.dtype)
+        if rec.dtype == torch.float32 and rec.words != words:
+            out.append(Finding(
+                "speccheck", rec.subject,
+                f"HBM traffic drift: the kernel is handed and writes "
+                f"{rec.words} words at N={n}, M={m}, the model says "
+                f"{words} (delta {words - rec.words:+d})"))
+        if rec.total_bytes != nbytes:
+            out.append(Finding(
+                "speccheck", f"{rec.subject}[{tag}]",
+                f"HBM traffic drift: the operands weigh {rec.total_bytes} "
+                f"bytes read once and written once, the model books "
+                f"{nbytes} (delta {nbytes - rec.total_bytes:+d})"))
+
+
 def run() -> list:
-    """All speccheck invariants over every registered spec."""
+    """All speccheck invariants over every registered spec, and the traffic
+    recount."""
     out: list = []
     for name in sorted(engine.REGISTRY):
         spec = engine.REGISTRY[name]
@@ -317,4 +346,5 @@ def run() -> list:
             _check_twin(spec, out)
         _check_storage_pricing(spec, out)
         _check_sharded_traffic(spec, out)
+    _check_traffic_recount(out)
     return out

@@ -67,8 +67,8 @@ def penta_factor(a, b, c, d, e) -> PentaFactor:
         g1, g2, d1, d2 = gamma_i, g1, delta_i, d1
     # entries beyond the band are unused; zero them so storage accounting
     # and the uniform variant stay exact
-    gamma[-1] = 0
-    delta[[-2, -1]] = 0
+    gamma.select(0, -1).fill_(0)
+    delta[-2:].fill_(0)
     return PentaFactor(eps=a, beta=beta, inv_alpha=inv_alpha, gamma=gamma,
                        delta=delta)
 
@@ -146,11 +146,15 @@ def periodic_penta_factor(a, b, c, d, e) -> PeriodicPentaFactor:
     vcoef = torch.stack([a[0], b[0], a[1], e[-2], d[-1], e[-1]])
     f = penta_factor(a, b, c, d, e)
     U = c.new_zeros((n, 4))
-    U[0, 0] = U[1, 1] = U[-2, 2] = U[-1, 3] = 1.0
+    for row, col in ((0, 0), (1, 1), (-2, 2), (-1, 3)):
+        U[row, col].fill_(1.0)       # fill_: no host copy of the 1.0
     Z = penta_solve(f, U)
     M4 = torch.eye(4, dtype=c.dtype, device=c.device) + _vty(vcoef, Z)
     Zt = penta_solve_t(f, _corner_V(vcoef, n))
-    return PeriodicPentaFactor(factor=f, Z=Z, Minv=torch.linalg.inv(M4),
+    # inv_ex: linalg.inv reads its error code on the host (a sync); a
+    # singular M4 gives non-finite entries, as jnp.linalg.inv does
+    return PeriodicPentaFactor(factor=f, Z=Z,
+                               Minv=torch.linalg.inv_ex(M4).inverse,
                                vcoef=vcoef, Zt=Zt)
 
 

@@ -42,9 +42,12 @@ class PeriodicTridiagFactor:
 
 
 def _set(v: torch.Tensor, idx, value) -> torch.Tensor:
-    """Out-of-place ``v[idx] = value`` (JAX's ``.at[idx].set``)."""
+    """Out-of-place ``v[idx] = value`` (JAX's ``.at[idx].set``) for a row
+    index or a list of them, by ``fill_``: an index assignment of a Python
+    number copies it from the host on a CUDA tensor (a host sync)."""
     v = v.clone()
-    v[idx] = value
+    for i in idx if isinstance(idx, (list, tuple)) else (idx,):
+        v.select(0, i).fill_(value)
     return v
 
 
@@ -162,7 +165,7 @@ def periodic_thomas_factor(a, b, c, *,
     v_last = a[0] / gamma
     v_dot_z = z[0] + v_last * z[-1]
     v = torch.zeros_like(b)
-    v[0] = 1.0
+    v.select(0, 0).fill_(1.0)
     v[-1] = v_last
     zt = thomas_solve_t(f, v, method=method)
     return PeriodicTridiagFactor(factor=f, z=z, v_last=v_last,

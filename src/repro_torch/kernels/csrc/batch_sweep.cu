@@ -194,6 +194,21 @@ constexpr int onchip_chunks() {
   return sizeof(C) == 4 ? 32 : 16;
 }
 
+// Rows of a chunk of the on-chip route over n rows in `chunks` chunks:
+// ceil(n / chunks) (ops.batch_chunk_spans); on the host too, for
+// batch_sweep_spans.
+__host__ __device__ __forceinline__ int64_t onchip_rows(int64_t n,
+                                                        int chunks) {
+  return (n + chunks - 1) / chunks;
+}
+
+// Rows of chunk w: from w * rows, at most `rows`, none past n.
+__host__ __device__ __forceinline__ int chunk_len(int64_t n, int64_t rows,
+                                                  int w) {
+  const int64_t left = n - (int64_t)w * rows;   // rows left from its first
+  return left <= 0 ? 0 : (int)(left < rows ? left : rows);
+}
+
 // Bounds outside which a companion product is rescaled (ops.RESCALE_AT).
 constexpr double RESCALE_HI = 0x1p60;
 constexpr double RESCALE_LO = 0x1p-60;
@@ -249,8 +264,7 @@ __global__ void __launch_bounds__(TILE * PMAX, 1)
   };
   const int64_t col = (int64_t)blockIdx.x * TILE + lane;
   const int64_t r0 = (int64_t)w * rows;
-  const int64_t left = col < m ? n - r0 : 0;   // rows left from r0
-  const int len = left <= 0 ? 0 : (int)(left < rows ? left : rows);
+  const int len = col < m ? chunk_len(n, rows, w) : 0;
 
   // 1. every load first: b, c into registers, a, d into shared memory
   C rb[L], rc[L];
@@ -374,7 +388,7 @@ int launch(int bandwidth, int route, int chunks, const void* const* diags,
   C* w = static_cast<C*>(work);
   if (route == 1) {
     // on chip: tridiagonal, `chunks` chunks of at most ROWS rows
-    const int64_t rows = (n + chunks - 1) / chunks;
+    const int64_t rows = chunks < 1 ? 0 : onchip_rows(n, chunks);
     if (bandwidth != 3 || chunks < 1 || rows > ROWS) {
       return (int)cudaErrorInvalidValue;
     }
@@ -446,6 +460,51 @@ extern "C" int batch_sweep(int dtype, int bandwidth, int route, int chunks,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// batch_sweep_spans: the row spans [s, e) of the route's chunks at (n,
+// chunks), as batch_onchip_kernel cuts them (onchip_rows, chunk_len):
+// route 0 stream (one span over n), 1 on chip (`chunks` chunks in row
+// order; a chunk past n holds none, at n), 2 ints a span into out (room for
+// `cap` spans).  Returns the spans written, or -1 where a launch at the
+// dtype would refuse the geometry.
+extern "C" int batch_sweep_spans(int dtype, int route, long long n,
+                                 int chunks, int* out, int cap) {
+  if (n <= 0 || cap < 1) return -1;
+  if (route == 0) {
+    out[0] = 0;
+    out[1] = (int)n;
+    return 1;
+  }
+  int most;
+  size_t smem;
+  switch (dtype) {
+    case 0:
+      most = onchip_chunks<float>();
+      smem = onchip_smem<float, float>(chunks);
+      break;
+    case 1:
+      most = onchip_chunks<double>();
+      smem = onchip_smem<double, double>(chunks);
+      break;
+    case 2:
+      most = onchip_chunks<float>();
+      smem = onchip_smem<__nv_bfloat16, float>(chunks);
+      break;
+    default:
+      return -1;
+  }
+  if (route != 1 || chunks < 1 || chunks > most || chunks > cap ||
+      onchip_rows(n, chunks) > ROWS || smem > SMEM_MAX) {
+    return -1;
+  }
+  const int64_t rows = onchip_rows(n, chunks);
+  for (int w = 0; w < chunks; ++w) {
+    const int64_t s = (int64_t)w * rows < n ? (int64_t)w * rows : n;
+    out[2 * w] = (int)s;
+    out[2 * w + 1] = (int)(s + chunk_len(n, rows, w));
+  }
+  return chunks;
 }
 
 // batch_sweep_onchip_blocks: blocks of the on-chip kernel in `chunks`

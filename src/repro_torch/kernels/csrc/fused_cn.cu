@@ -962,6 +962,40 @@ extern "C" int fused_cn(int dtype, int bandwidth, int route, int blocks,
   }
 }
 
+// fused_cn_spans: the row spans [s, e) the route sweeps at (n, blocks,
+// chunks), by part_begin as the kernels cut them: route 0 global (one span
+// over n), 1 on chip (blocks = 1) and 2 partitioned (blocks >= 2), every
+// chunk of every row block in row order, 2 ints a span into out (room for
+// `cap` spans).  Returns the spans written, or -1 where a launch at
+// (dtype, bandwidth) would refuse the geometry (tiles_fit).
+extern "C" int fused_cn_spans(int dtype, int bandwidth, int route,
+                              long long n, int blocks, int chunks, int* out,
+                              int cap) {
+  if (n <= 0 || n > INT32_MAX || (bandwidth != 3 && bandwidth != 5) ||
+      (bandwidth == 5 && n < 2) || cap < 1 || route < GLOBAL ||
+      route > PARTITION) {
+    return -1;
+  }
+  if (route == GLOBAL) {
+    out[0] = 0;
+    out[1] = (int)n;
+    return 1;
+  }
+  bool fits;
+  switch (dtype) {
+    case 0:
+      fits = tiles_fit<float>(bandwidth, n, blocks, chunks);
+      break;
+    case 1:
+      fits = tiles_fit<double>(bandwidth, n, blocks, chunks);
+      break;
+    default:
+      return -1;
+  }
+  if (!fits || (route == PARTITION ? blocks < 2 : blocks != 1)) return -1;
+  return write_spans((int)n, blocks, chunks, out, cap);
+}
+
 // fused_cn_onchip_blocks: blocks of the on-chip kernel for (dtype,
 // bandwidth, N, chunks) that one SM holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks.

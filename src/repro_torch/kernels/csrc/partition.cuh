@@ -108,9 +108,28 @@ __device__ __forceinline__ C apply(const P&, const Row<C>& k, C acc, C h1,
   return acc;
 }
 
-// first row of part k of p parts over n rows (ops.chunk_bounds)
-__device__ __forceinline__ int part_begin(int k, int n, int p) {
+// first row of part k of p parts over n rows (ops.chunk_bounds); on the
+// host too, for the <source>_spans exports
+__host__ __device__ __forceinline__ int part_begin(int k, int n, int p) {
   return (int)(((int64_t)k * n) / p);
+}
+
+// The row spans [s, e) that the tile kernels sweep: `chunks` chunks of each
+// of `blocks` row blocks over n rows (ops.split_spans), cut by part_begin
+// as the kernels cut them, 2 ints a span into out, in row order.  Returns
+// the spans written, or -1 when more than `cap` would be.
+inline int write_spans(int n, int blocks, int chunks, int* out, int cap) {
+  if ((int64_t)blocks * chunks > cap) return -1;
+  int w = 0;
+  for (int b = 0; b < blocks; ++b) {
+    const int rs = part_begin(b, n, blocks);
+    const int rows = part_begin(b + 1, n, blocks) - rs;
+    for (int k = 0; k < chunks; ++k, ++w) {
+      out[2 * w] = rs + part_begin(k, rows, chunks);
+      out[2 * w + 1] = rs + part_begin(k + 1, rows, chunks);
+    }
+  }
+  return w;
 }
 
 // first row of commit group g of the chunk [s, e)

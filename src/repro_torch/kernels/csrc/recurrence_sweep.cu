@@ -140,6 +140,16 @@ constexpr int TILE = 32;     // columns a block, one per lane
 constexpr int ROWS = 8;      // rows a chunk (ops.RECURRENCE_ROWS)
 constexpr int PMAX = 16;     // chunks (warps) a block at most
 
+// The tile's windows, shared by the kernel and recurrence_sweep_spans:
+// `span` rows a window over n rows, the last ragged (ops.recurrence_windows);
+// the rows left from chunk w of window v; the row at walk position s.
+// Macros, not inline functions: spelled as functions, the same arithmetic
+// made ptxas allocate the tile kernel's registers differently.
+#define WINDOW_COUNT(n, span) (((n) + (span) - 1) / (span))
+#define WINDOW_LEFT(n, span, v, w, rows) \
+  ((n) - ((v) * (span) + (int64_t)(w) * (rows)))
+#define WALK_ROW(n, s, reverse) ((reverse) ? (n) - 1 - (s) : (s))
+
 // Summary words a chunk and column: the zero-carry end state and its
 // responses (order 1: e, r; order 2: z1, z2, a1, a2, b1, b2).
 template <int ORDER>
@@ -174,18 +184,18 @@ __global__ void __launch_bounds__(TILE * PMAX)
   const int64_t col = (int64_t)blockIdx.x * TILE + lane;
   const bool live = col < m;
   const int64_t span = (int64_t)chunks * R;
-  const int64_t windows = (n + span - 1) / span;
+  const int64_t windows = WINDOW_COUNT(n, span);
   const int64_t step = REVERSE ? -m : m;   // offset of the next walked row
 
   // rows of this thread's chunk in window v, and the offset of its first
   const auto rows_in = [&](int64_t v) -> int {
-    const int64_t left = n - (v * span + (int64_t)w * R);
+    const int64_t left = WINDOW_LEFT(n, span, v, w, R);
     if (!live || left <= 0) return 0;
     return left < R ? (int)left : R;
   };
   const auto first = [&](int64_t v) -> int64_t {
     const int64_t s = v * span + (int64_t)w * R;
-    return (REVERSE ? n - 1 - s : s) * m + col;
+    return WALK_ROW(n, s, REVERSE) * m + col;
   };
 
   // a window's operands at the storage type, in registers: window v in
@@ -409,6 +419,38 @@ extern "C" int recurrence_sweep(int dtype, int order, int reverse, int route,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// recurrence_sweep_spans: the rows the route walks at (n, chunks), as the
+// kernels cut them (WINDOW_COUNT, WINDOW_LEFT, WALK_ROW): route 0 walk (one
+// span over n), 1 tile (every chunk of every window in walk order); 2 ints
+// a span into out, its first row in walk order (-1 for a chunk with none)
+// and its count of rows, walked descending when `reverse` (room for `cap`
+// spans).  Returns the spans written, or -1 where a launch would refuse the
+// geometry.
+extern "C" int recurrence_sweep_spans(int route, int reverse, long long n,
+                                      int chunks, int* out, int cap) {
+  if (n <= 0 || cap < 1) return -1;
+  if (route == 0) {
+    out[0] = (int)WALK_ROW((int64_t)n, (int64_t)0, reverse != 0);
+    out[1] = (int)n;
+    return 1;
+  }
+  if (route != 1 || chunks < 1 || chunks > PMAX) return -1;
+  const int64_t span = (int64_t)chunks * ROWS;
+  const int64_t windows = WINDOW_COUNT((int64_t)n, span);
+  if (windows * chunks > cap) return -1;
+  int k = 0;
+  for (int64_t v = 0; v < windows; ++v) {
+    for (int w = 0; w < chunks; ++w, ++k) {
+      const int64_t left = WINDOW_LEFT((int64_t)n, span, v, w, ROWS);
+      const int len = left <= 0 ? 0 : (int)(left < ROWS ? left : ROWS);
+      const int64_t s = v * span + (int64_t)w * ROWS;
+      out[2 * k] = len > 0 ? (int)WALK_ROW((int64_t)n, s, reverse != 0) : -1;
+      out[2 * k + 1] = len;
+    }
+  }
+  return k;
 }
 
 // recurrence_tile_blocks: blocks of the tile kernel (ascending) in `chunks`

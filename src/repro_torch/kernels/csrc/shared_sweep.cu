@@ -645,6 +645,43 @@ extern "C" int shared_sweep(int dtype, int route, int blocks, int chunks,
   }
 }
 
+// shared_sweep_spans: the row spans [s, e) the route sweeps at (n, blocks,
+// chunks), by part_begin as the kernels cut them: route 0 serial (one span
+// over n), 1 on chip and 2 partitioned (every chunk of every row block, in
+// row order; chunks = 1 gives K0-K2's row blocks), 2 ints a span into out
+// (room for `cap` spans).  Returns the spans written, or -1 where a launch
+// at (dtype, order) with `tile` columns a tile would refuse the geometry
+// (tiles_fit).
+extern "C" int shared_sweep_spans(int dtype, int order, int route,
+                                  long long n, int blocks, int chunks,
+                                  int tile, int* out, int cap) {
+  if (n <= 0 || n > INT32_MAX || (order != 1 && order != 2) || cap < 1) {
+    return -1;
+  }
+  if (route == SERIAL) {
+    out[0] = 0;
+    out[1] = (int)n;
+    return 1;
+  }
+  bool fits;
+  switch (dtype) {
+    case 0:
+    case 2:
+      fits = tiles_fit<float>(order, n, blocks, chunks, tile);
+      break;
+    case 1:
+      fits = tiles_fit<double>(order, n, blocks, chunks, tile);
+      break;
+    default:
+      return -1;
+  }
+  if (!fits || (route == ONCHIP && blocks != 1) || route < SERIAL ||
+      route > PARTITION) {
+    return -1;
+  }
+  return write_spans((int)n, blocks, chunks, out, cap);
+}
+
 // shared_sweep_tile_blocks: blocks of the tile kernel over `rows` rows,
 // `chunks` chunks and `tile` columns that one SM holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks.

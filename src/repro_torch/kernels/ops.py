@@ -658,8 +658,9 @@ def _shared_launch(spec, lhs, rhs, eps, route, chunks, tile_m,
                                     or tile_m is not None):
         raise ValueError("shared_sweep: the serial route sweeps whole "
                          "columns; it takes no chunks or tile")
-    chunks = picked.chunks if chunks is None else int(chunks)
-    tile_m = picked.tile_m if tile_m is None else int(tile_m)
+    # chunks and tile_m are Python arguments, never tensors
+    chunks = picked.chunks if chunks is None else int(chunks)  # speclint: allow-concretize
+    tile_m = picked.tile_m if tile_m is None else int(tile_m)  # speclint: allow-concretize
     if tile_m not in (16, 32):
         raise ValueError(f"shared_sweep: tile_m={tile_m} must be 16 or 32")
     if n and m:
@@ -827,6 +828,35 @@ def _rescaled(p: list) -> list:
     return [q * scale for q in p]
 
 
+def batch_chunk_spans(n: int, chunks: int) -> list:
+    """The row spans ``[(s, e), …]`` of the batch sweep's on-chip chunks
+    over N rows, in row order: chunk k holds rows ``[k·R, min((k + 1)·R,
+    N))``, R = ceil(N / chunks), the last ragged (a chunk past N holds
+    none, at N), as ``batch_onchip_kernel`` cuts them
+    (``csrc/batch_sweep.cu``)."""
+    rows = -(-n // chunks)
+    return [(min(k * rows, n), min((k + 1) * rows, n))
+            for k in range(chunks)]
+
+
+def _slabs(x: torch.Tensor, spans: list, rows: int,
+           fill: float) -> torch.Tensor:
+    """``x`` (N, M) cut into one slab of ``rows`` rows a span ``(s, e)``:
+    rows ``[s, e)``, then ``fill``."""
+    pad = x.new_full((rows, x.shape[1]), fill)
+    return torch.stack([torch.cat([x[s:e], pad[:rows - (e - s)]])
+                        for s, e in spans])
+
+
+def _unslab(out: torch.Tensor, spans: list, n: int) -> torch.Tensor:
+    """``_slabs`` undone: slab k's first ``e - s`` rows back to rows
+    ``[s, e)`` of an (N, M) result."""
+    res = out.new_empty((n, out.shape[-1]))
+    for k, (s, e) in enumerate(spans):
+        res[s:e] = out[k, :e - s]
+    return res
+
+
 def _batch_chunked(diags, rhs: torch.Tensor, chunks: int) -> torch.Tensor:
     """The on-chip route's order, all chunks at once: each chunk's
     companion product (rescaled row by row), the fold to each chunk's true
@@ -836,18 +866,12 @@ def _batch_chunked(diags, rhs: torch.Tensor, chunks: int) -> torch.Tensor:
     carries.  Every row in ``_factor_pass``'s arithmetic."""
     cdt = compute_dtype(rhs.dtype)
     n, m = rhs.shape
-    rows = -(-n // chunks)
-    pad = chunks * rows - n
-
-    def tiled(x: torch.Tensor, fill: float) -> torch.Tensor:
-        x = torch.cat([x.to(cdt), torch.full((pad, m), fill, dtype=cdt,
-                                             device=rhs.device)])
-        return x.reshape(chunks, rows, m)
-
-    a, b, c, d = (tiled(x, f) for x, f in
+    spans = batch_chunk_spans(n, chunks)
+    rows = max(e - s for s, e in spans)
+    a, b, c, d = (_slabs(x.to(cdt), spans, rows, f) for x, f in
                   zip((*diags, rhs), (0.0, 1.0, 0.0, 0.0)))
-    live = (torch.arange(chunks * rows, device=rhs.device) < n).reshape(
-        chunks, rows, 1)
+    live = (torch.arange(rows, device=rhs.device) < torch.tensor(
+        [e - s for s, e in spans], device=rhs.device)[:, None])[..., None]
     ones = torch.ones((chunks, m), dtype=cdt, device=rhs.device)
     zeros = torch.zeros_like(ones)
 
@@ -897,7 +921,7 @@ def _batch_chunked(diags, rhs: torch.Tensor, chunks: int) -> torch.Tensor:
     for t in range(rows - 1, -1, -1):
         (x,) = keep(t, [dhat[:, t] - chat_all[:, t] * x], [x])
         out[:, t] = x
-    return out.reshape(chunks * rows, m)[:n]
+    return _unslab(out, spans, n)
 
 
 def _plucker_row(p: list, a, b, c, d, e) -> list:
@@ -1259,6 +1283,20 @@ def recurrence_route(n: int, m: int, dtype, order: int,
                      f"got {which!r}")
 
 
+def recurrence_windows(n: int, chunks: int, rows: int) -> list:
+    """The tile route's windows over N rows, in walk order: window v's
+    chunk w walks the positions ``[v·S + w·rows, …)`` (S = chunks·rows)
+    up to N, ceil(N / S) windows, the last ragged (a chunk past N walks
+    none, at N), as ``recurrence_tile_kernel`` cuts them
+    (``csrc/recurrence_sweep.cu``).  Position s is row s ascending, row
+    N − 1 − s descending.  A list of windows, each a list of ``(s, e)``
+    a chunk."""
+    span = chunks * rows
+    return [[(min(v * span + w * rows, n), min(v * span + (w + 1) * rows, n))
+             for w in range(chunks)]
+            for v in range(-(-n // span))]
+
+
 def _recurrence_chunked(spec: RecurrenceSpec, gates, q: torch.Tensor,
                         chunks: int, rows: int) -> torch.Tensor:
     """The tile route's order, all columns at once: N cut, in walk order,
@@ -1271,14 +1309,15 @@ def _recurrence_chunked(spec: RecurrenceSpec, gates, q: torch.Tensor,
     only chunks that write nothing."""
     cdt = compute_dtype(q.dtype)
     n, m = q.shape
-    order, span = spec.order, chunks * rows
-    windows = -(-n // span)
+    order = spec.order
+    spans = [c for w in recurrence_windows(n, chunks, rows) for c in w]
+    windows = len(spans) // chunks
     dev = q.device
 
     def walked(x: torch.Tensor) -> torch.Tensor:
         x = x.flip(0) if spec.reverse else x
-        pad = torch.zeros((windows * span - n, m), dtype=cdt, device=dev)
-        return torch.cat([x.to(cdt), pad]).reshape(windows, chunks, rows, m)
+        return _slabs(x.to(cdt), spans, rows, 0.0).reshape(
+            windows, chunks, rows, m)
 
     g = [walked(t) for t in gates]
     u = walked(q)
@@ -1316,7 +1355,7 @@ def _recurrence_chunked(spec: RecurrenceSpec, gates, q: torch.Tensor,
             out[v, :, t] = acc
             h1, h2 = acc, h1
         carry = (h1[-1], h2[-1])
-    out = out.reshape(windows * span, m)[:n]
+    out = _unslab(out.reshape(windows * chunks, rows, m), spans, n)
     return out.flip(0) if spec.reverse else out
 
 
@@ -1389,7 +1428,8 @@ def recurrence_cuda(spec: RecurrenceSpec, gates, q: torch.Tensor, *,
     ptrs = (ctypes.c_void_p * spec.order)(*(t.data_ptr() for t in gates))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(RECURRENCE_DTYPES[q.dtype], spec.order, int(spec.reverse),
+        # spec.reverse is a field of the frozen spec, a Python bool
+        rc = fn(RECURRENCE_DTYPES[q.dtype], spec.order, int(spec.reverse),  # speclint: allow-concretize
                 _RECURRENCE_ROUTE_CODES[picked.name], picked.chunks,
                 picked.rows, ptrs, q.data_ptr(), out.data_ptr(), n, m,
                 picked.threads, stream)

@@ -70,7 +70,7 @@ def expand_uniform(bandwidth: int, periodic: bool, n: int, stored):
     inner = stored.factor if periodic else stored
     if bandwidth == 3:
         a = inner.a.expand(n).clone()
-        a[0] = 0
+        a.select(0, 0).fill_(0)      # no host copy of the 0
         inner = dataclasses.replace(inner, a=a)
     else:
         eps = inner.eps.expand(n).clone()

@@ -83,3 +83,11 @@ def get_backend(name: str):
 def available_backends() -> list:
     """Sorted names of every class-registered backend."""
     return sorted(_REGISTRY)
+
+
+def available_pure_backends() -> list:
+    """Sorted names of every pure-registered backend — what ``factorize``
+    accepts, and what ``repro_torch.analysis.tracecheck`` enumerates so a
+    newly registered backend is held to the host-sync contract
+    automatically."""
+    return sorted(_PURE_REGISTRY)

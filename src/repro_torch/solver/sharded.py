@@ -125,7 +125,8 @@ def rank_device(device: torch.device) -> torch.device:
     system on CUDA, else the system's own."""
     if device.type != "cuda":
         return device
-    local_rank = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+    # an environment string or the rank, a Python int
+    local_rank = int(os.environ.get("LOCAL_RANK", dist.get_rank()))  # speclint: allow-concretize
     return torch.device("cuda", local_rank % torch.cuda.device_count())
 
 

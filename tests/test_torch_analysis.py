@@ -19,7 +19,8 @@ import torch
 
 from repro.kernels import engine as jengine
 
-from repro_torch.analysis import Finding, nansweep, run_all, speccheck
+from repro_torch import analysis
+from repro_torch.analysis import Finding, mutation, nansweep, run_all, speccheck
 from repro_torch.analysis.__main__ import main
 from repro_torch.kernels import engine, ops
 
@@ -39,7 +40,7 @@ def _plain_data(table: dict) -> dict:
 
 def test_speccheck_clean():
     assert speccheck.run() == []
-    assert run_all() == []
+    assert run_all(device="cpu") == []
 
 
 def test_pass_tables_match_jax_term_for_term():
@@ -161,13 +162,18 @@ def test_output_buffer_checks_what_it_is_given():
 
 
 def test_cli_checks_and_its_card_default(capsys, monkeypatch):
-    assert main([]) == 0
-    assert "speccheck clean: 12 registered specs" in capsys.readouterr().out
+    assert main(["--device", "cpu"]) == 0
+    assert "speclint clean on cpu: 12 registered specs" in \
+        capsys.readouterr().out
     monkeypatch.setattr(nansweep, "run", lambda device: [])
+    monkeypatch.setattr(analysis, "run_all", lambda **kw: [])
+    monkeypatch.setattr(mutation, "self_test", lambda verbose: [])
     assert main(["--all", "--device", "cpu"]) == 0
     assert "nan-sweep clean on cpu" in capsys.readouterr().out
     monkeypatch.undo()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA card"):
             main(["--nan-sweep", "-q"])
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            main(["-q"])
     assert Finding("a", "b", "c").__str__() == "[a] b: c"

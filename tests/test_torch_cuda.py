@@ -929,6 +929,40 @@ def test_nansweep_on_the_card_finds_nothing(cuda_device):
     assert nansweep.run("cuda") == []
 
 
+def test_tracecheck_on_the_card(cuda_device):
+    """Every pure backend x mode x boundary condition and the recurrence
+    cases on the kernels, under the host-sync dispatch mode and the sync
+    debug mode: no finding, JAX's skips, and exactly the launches of the
+    cases that ran."""
+    from repro_torch.analysis import tracecheck
+    ops.reset_launches()
+    res = tracecheck.sweep("cuda")
+    torch.cuda.synchronize()
+    assert res.findings == []
+    assert sorted(res.skips) == ["cuda/penta/periodic/batch",
+                                 "cuda/tridiag/periodic/batch"]
+    assert res.cases + 2 == len(tracecheck.contract_cases())
+    assert res.recurrences == 8
+    assert dict(ops.LAUNCHES) == res.launches
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_gridcheck_against_the_cuda_sources(cuda_device):
+    """Every route rule's spans over its N grid equal what each CUDA
+    source's ``<source>_spans`` export gives, and no kernel launches."""
+    from repro_torch.analysis import gridcheck
+    ops.reset_launches()
+    res = gridcheck.sweep("cuda")
+    assert res.findings == []
+    assert res.spans > 10 ** 6 and res.compared == res.spans
+    assert not ops.LAUNCHES
+
+
+def test_run_all_on_the_card(cuda_device):
+    from repro_torch.analysis import run_all
+    assert run_all() == []
+
+
 def test_measured_leg_on_the_card(cuda_device):
     """The dry run's measured leg at mamba2-130m's width, 2 layers, B 1:
     one ``recur1`` a layer in the timed and the traced step, the trace's

@@ -39,12 +39,13 @@ print(len(names), ",".join(subpackages), ",".join(leaked))
 # solver, the mesh builders, the compressed mean, the pipeline and elastic
 # restore) among them, the cost model and profiler report
 # (``launch.{analytic_cost,trace_analysis,dryrun,roofline_report}``) and
-# the registry checks (``analysis``: its package, ``__main__``,
-# ``speccheck``, ``nansweep``)
+# the checks (``analysis``: its package, ``__main__``, ``speccheck``,
+# ``nansweep``, and since the last module slice ``capture``,
+# ``gridcheck``, ``lint``, ``mutation``, ``tracecheck``)
 SUBPACKAGES = ["analysis", "ckpt", "configs", "convert", "core", "data",
                "kernels", "launch", "models", "pde", "runtime", "sharding",
                "solver", "train"]
-MODULES = 72
+MODULES = 77
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
