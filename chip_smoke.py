@@ -11,11 +11,13 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
   3. each kernel against its plain-torch version on the card, for every
      sweep variant and storage type, at main-path and edge shapes (the
      batch sweep with distinct diagonals in every system, on the route it
-     picks and, for tridiagonal systems, on the stream route forced, each
-     in its own chunks, also at a chunk's 16 rows either side, N = 37, its
-     on-chip route's last N and the first past it, where a forced on-chip
-     launch must raise, and on systems whose unscaled chunk products
-     overflow fp32 (b in [1e3, 2e3]); the shared
+     picks, on the stream route forced and, up to its last N, on the
+     on-chip route forced (tridiagonal ``batch_onchip_kernel``,
+     pentadiagonal ``batch_penta_kernel``), each in its own chunks, also
+     at a chunk's rows either side, N = 37, the on-chip route's last N and
+     the first past it, where a forced on-chip launch must raise, and on
+     systems whose unscaled chunk products overflow fp32 (the main diagonal
+     in [1e3, 2e3]), both bandwidths; the shared
      sweep on the route it picks, on the partitioned route and, up to
      N = 4096, on the serial kernel forced, each in its own row blocks and
      chunks, also at its on-chip route's last N and the first past it,
@@ -67,11 +69,17 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
      beside the least time the card could take; each batch row also
      times the shared sweep on the same operator and shape, the paper's
      comparison, and holds the batch sweep to its plain version at the
-     full grid on distinct diagonals in every system; (d)'s row times the
-     on-chip route in turns with the stream route forced (``stream_ms``),
-     at fp32 and, once each, at fp64 (256 rows, its on-chip route's last
-     N) and bf16 storage, with the tile, its blocks per SM and ptxas
-     report, and runs the overflow-prone case at the full grid; each
+     full grid on distinct diagonals in every system; (d)'s and (e)'s rows
+     time the on-chip route and the stream route forced in turns
+     (``onchip_ms``, ``stream_ms``; ``ms`` the route the rule takes: (e)
+     streams), at fp32 and, once each, at fp64 (256 rows, the on-chip
+     route's last N) and bf16 storage, with the tile, its blocks per SM and
+     ptxas report, and run the overflow-prone case at the full grid on
+     the on-chip route; (e)'s also holds the pentadiagonal tile to its
+     plain version and checks its residual, and gives the tile a kernels
+     row of its own (a forced route: its launches are those the main path
+     counted under ``penta_batch/onchip``, none while the rule streams);
+     each
      recurrence row ((f), (g), (h), (o), and (m) and (n) after serving)
      times the walk, the tile route and the walk again (an identical
      launch, whose distance from the first walk is the turns' noise) in
@@ -184,6 +192,9 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
      the cases it ran) and the lint; ``gridcheck``, every route rule's row
      spans over its N grid held against each CUDA source's
      ``<source>_spans`` export; the mutation self-test (8 classes);
+     ``carryprobe`` on every partitioned cell (NaN- and zero-filled
+     workspaces, a sentinel in each row block's entry carries) and the
+     two card mutation classes it must catch;
  12. phase ``profile``: the measured leg of ``repro_torch.launch.dryrun``
      on P1 mamba2-130m ``prefill_32k`` (24 layers, the batch that leaves
      10 GB free), P2 mamba2-130m ``train_4k`` (B 8), P3 recurrentgemma-9b
@@ -490,19 +501,20 @@ def shared_routes_vs_plain(name, label, spec, lhs, rhs, eps, compare) -> None:
         del got, want
 
 
-def batch_edge_shapes(storage) -> tuple:
-    """The batch sweep's on-chip route at ``storage``: a chunk's rows L
-    either side, 37, its last N and the first past it (the stream route),
-    at M = 1000, not a multiple of a block's 32 systems."""
+def batch_edge_shapes(storage, bandwidth: int = 3) -> tuple:
+    """The batch sweep's on-chip route of ``bandwidth`` at ``storage``: a
+    chunk's rows L either side, 37, its last N and the first past it (the
+    stream route), at M = 1000, not a multiple of a block's 32 systems."""
     from repro_torch.kernels import ops
-    rows, n_max = ops.BATCH_ROWS, ops.batch_onchip_max_rows(storage)
+    rows = ops.batch_onchip_rows(storage, bandwidth)
+    n_max = ops.batch_onchip_max_rows(storage, bandwidth)
     return tuple((n, 1000) for n in (rows - 1, rows, rows + 1, 37, n_max,
                                      n_max + 1))
 
 
-def overflow_batch_operands(n: int, m: int, gen):
-    """Tridiagonal batch operands (fp32) whose unscaled chunk products
-    overflow: b in [1e3, 2e3], a and c in [-1, 1]."""
+def overflow_batch_operands(n: int, m: int, gen, bandwidth: int = 3):
+    """Batch operands (fp32) whose unscaled chunk products overflow: the
+    main diagonal in [1e3, 2e3], the others in [-1, 1]."""
     import torch
 
     def u(lo, hi):
@@ -510,19 +522,22 @@ def overflow_batch_operands(n: int, m: int, gen):
                                             device="cuda",
                                             dtype=torch.float64)).float()
     rhs = torch.randn(n, m, generator=gen, device="cuda")
-    return [u(-1, 1), u(1e3, 2e3), u(-1, 1)], rhs
+    half = bandwidth // 2
+    return ([u(-1, 1) for _ in range(half)] + [u(1e3, 2e3)]
+            + [u(-1, 1) for _ in range(half)]), rhs
 
 
 def batch_routes_vs_plain(name, label, spec, diags, rhs, compare) -> None:
-    """The batch sweep on the route it picks and, for tridiagonal systems,
-    on the stream route forced, each against the plain version in the
-    route's chunks, each solve counted once under the spec's name; past
-    the on-chip route's N, and for pentadiagonal systems, a forced
-    on-chip launch must raise."""
+    """The batch sweep on the route it picks, on the stream route forced
+    and, up to its last N, on the on-chip route forced, each against the
+    plain version in the route's chunks, each solve counted once under the
+    spec's name; past the on-chip route's N a forced on-chip launch must
+    raise."""
     from repro_torch.kernels import ops
     n, m = rhs.shape
     picked = ops.batch_route(n, rhs.dtype, spec.bandwidth)
-    routes = (picked.name, "stream") if spec.bandwidth == 3 else ("stream",)
+    fits = n <= ops.batch_onchip_max_rows(rhs.dtype, spec.bandwidth)
+    routes = (picked.name, "stream") + ("onchip",) * fits
     for which in dict.fromkeys(routes):
         r = ops.batch_route(n, rhs.dtype, spec.bandwidth, which)
         ops.reset_launches()
@@ -533,7 +548,7 @@ def batch_routes_vs_plain(name, label, spec, diags, rhs, compare) -> None:
         compare(f"{name}/{which}", label, n, m, got,
                 ops.batch_sweep_plain(spec, diags, rhs, chunks=r.chunks))
         del got
-    if picked.name == "stream":
+    if not fits:
         try:
             ops.batch_sweep_cuda(spec, diags, rhs, route="onchip")
         except ValueError:
@@ -632,7 +647,8 @@ def phase_kernel_vs_plain() -> None:
                     del gates, q
                 continue
             if spec.layout == "batch":
-                for n, m in shapes + batch_edge_shapes(storage):
+                for n, m in shapes + batch_edge_shapes(storage,
+                                                       spec.bandwidth):
                     diags, rhs = random_batch_operands(spec, n, m, storage,
                                                        gen)
                     batch_routes_vs_plain(name, label, spec, diags, rhs,
@@ -665,22 +681,24 @@ def phase_kernel_vs_plain() -> None:
                                            "its shared memory")
                 del lhs, rhs, eps
         torch.cuda.empty_cache()
-    # the batch sweep's on-chip route where unscaled chunk products
+    # the batch sweep's on-chip routes where unscaled chunk products
     # overflow fp32: finite, and equal to the plain version in its chunks
     # and to the sequential sweep
-    spec = engine.REGISTRY["thomas_batch"]
-    for n, m in _OVERFLOW_SHAPES:
-        diags, rhs = overflow_batch_operands(n, m, gen)
-        check(ops.batch_route(n, rhs.dtype, 3).name == "onchip",
-              f"overflow case N={n}: not on the on-chip route")
-        got = ops.batch_sweep_cuda(spec, diags, rhs)
-        check(torch.isfinite(got).all().item(),
-              f"overflow case N={n}: the on-chip route is not finite")
-        compare("thomas_batch/onchip_overflow", "float32", n, m, got,
-                ops.batch_sweep_plain(spec, diags, rhs))
-        compare("thomas_batch/onchip_overflow_vs_sequential", "float32", n,
-                m, got, ops.batch_sweep_plain(spec, diags, rhs, chunks=1))
-        del diags, rhs, got
+    for name in ("thomas_batch", "penta_batch"):
+        spec = engine.REGISTRY[name]
+        for n, m in _OVERFLOW_SHAPES:
+            diags, rhs = overflow_batch_operands(n, m, gen, spec.bandwidth)
+            r = ops.batch_route(n, rhs.dtype, spec.bandwidth, "onchip")
+            got = ops.batch_sweep_cuda(spec, diags, rhs, route="onchip")
+            check(torch.isfinite(got).all().item(),
+                  f"{name} overflow case N={n}: the on-chip route is not "
+                  "finite")
+            compare(f"{name}/onchip_overflow", "float32", n, m, got,
+                    ops.batch_sweep_plain(spec, diags, rhs, chunks=r.chunks))
+            compare(f"{name}/onchip_overflow_vs_sequential", "float32", n,
+                    m, got, ops.batch_sweep_plain(spec, diags, rhs,
+                                                  chunks=1))
+            del diags, rhs, got
     for kind in ("tridiag", "penta"):
         name = f"fused_cn_{kind}"
         kernel = getattr(fused_cn, f"{name}_cuda")
@@ -738,11 +756,12 @@ def phase_kernel_vs_plain() -> None:
           "tolerance": _TOLERANCE, "recurrence_tolerance": _RECUR_TOLERANCE,
           "fused_measure": "max|kernel - plain| / the largest term formed",
           "shared_routes": ["picked", "partition", "serial (N <= 4096)"],
-          "batch_routes": ["picked", "stream (tridiag)"],
+          "batch_routes": ["picked", "stream", "onchip (to its last N)"],
           "batch_edge_shapes": {
-              label: [list(s) for s in batch_edge_shapes(storage)]
+              f"{label}/bw{bw}": [list(s) for s in batch_edge_shapes(
+                  storage, bw)]
               for label, (_, storage) in storages.items()
-              if label != "float16"},
+              if label != "float16" for bw in (3, 5)},
           "overflow_shapes": [list(s) for s in _OVERFLOW_SHAPES],
           "shared_edge_shapes": {
               label: [list(s) for s in shared_edge_shapes(storage)]
@@ -797,6 +816,11 @@ def main_path_cases():
 _BACKWARD = ("a", "d")
 _BATCH_LAUNCHES = {"d": {"thomas_batch": 2}, "e": {"penta_batch": 1}}
 _BATCH_ROUTES = {"d": "onchip", "e": "stream"}
+# the batch sweep's kernel on each route, by bandwidth
+_BATCH_KERNELS = {3: {"onchip": "batch_onchip_kernel",
+                      "stream": "batch_sweep_kernel"},
+                  5: {"onchip": "batch_penta_kernel",
+                      "stream": "batch_sweep_kernel"}}
 
 
 def phase_main_path() -> dict:
@@ -825,6 +849,7 @@ def phase_main_path() -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)
+        route_launches = dict(ops.BATCH_ROUTE_LAUNCHES)
         check(fact.backend == "cuda",
               f"({key}) auto chose {fact.backend!r}, not 'cuda'")
         fwd = sum(v for k, v in launches.items() if not k.endswith("_t"))
@@ -834,11 +859,14 @@ def phase_main_path() -> dict:
             check(launches == _BATCH_LAUNCHES[key],
                   f"({key}) launches {launches}, expected "
                   f"{_BATCH_LAUNCHES[key]}")
-            # the route is a shape rule: (d) takes the on-chip one
+            # the route is a shape rule: (d) takes the on-chip one, (e)
+            # streams; the launches say which kernel ran
             route = ops.batch_route(n, rhs.dtype, system.bandwidth).name
-            check(route == _BATCH_ROUTES[key],
-                  f"({key}) batch route {route!r}, expected "
-                  f"{_BATCH_ROUTES[key]!r}")
+            want = {f"{name}/{_BATCH_ROUTES[key]}": count
+                    for name, count in _BATCH_LAUNCHES[key].items()}
+            check(route == _BATCH_ROUTES[key] and route_launches == want,
+                  f"({key}) batch route {route!r}, launches by route "
+                  f"{route_launches}, expected {want}")
         with torch.no_grad():
             d = rhs.detach()
             resid = (torch.linalg.vector_norm(banded_matvec(system, x) - d)
@@ -851,6 +879,7 @@ def phase_main_path() -> dict:
                "seconds": seconds, "residual": resid}
         if key in _BATCH_ROUTES:
             row["batch_route"] = _BATCH_ROUTES[key]
+            row["route_launches"] = route_launches
         if key == "a":
             check(bwd > 0, "(a) the transposed sweep kernel never launched")
             with torch.no_grad():
@@ -879,7 +908,10 @@ def phase_main_path() -> dict:
         # a batch factorization holds (N, M) copies of every diagonal:
         # phase_times rebuilds them rather than keep them all alive
         results[key] = {"launches": fwd + bwd, "system": system,
-                        "fact": None if system.mode == "batch" else fact}
+                        "fact": None if system.mode == "batch" else fact,
+                        "route_launches": {
+                            k.split("/")[1]: v
+                            for k, v in route_launches.items()}}
         del x, rhs, fact
         torch.cuda.empty_cache()
     return results
@@ -2674,9 +2706,10 @@ def batch_ptxas(ptxas: dict) -> dict:
 
 
 def batch_route_pair(spec, n: int, m: int, storage, card: str, gen) -> dict:
-    """The batch sweep at (n, m, storage) on distinct diagonals: the route
-    it picks and the stream route forced, timed in turns, each beside the
-    bound and held to the plain version in its chunks."""
+    """The batch sweep at (n, m, storage) on distinct diagonals: the on-chip
+    route and the stream route forced, timed in turns, each beside the
+    bound and held to the plain version in its chunks; ``ms`` is the route
+    the rule picks."""
     import torch
     from repro_torch.kernels import ops
 
@@ -2684,9 +2717,9 @@ def batch_route_pair(spec, n: int, m: int, storage, card: str, gen) -> dict:
     picked = ops.batch_route(n, storage, spec.bandwidth)
     turns = route_turns(
         lambda which: ops.batch_sweep_cuda(spec, diags, rhs, route=which),
-        "stream", picked.name)
+        "stream", "onchip")
     errs = {}
-    for which in (picked.name, "stream"):
+    for which in ("onchip", "stream"):
         r = ops.batch_route(n, storage, spec.bandwidth, which)
         got = ops.batch_sweep_cuda(spec, diags, rhs, route=which)
         errs[which] = rel_err(got, ops.batch_sweep_plain(spec, diags, rhs,
@@ -2703,10 +2736,17 @@ def batch_route_pair(spec, n: int, m: int, storage, card: str, gen) -> dict:
     bound_ms = max(nbytes / rates.hbm_bytes_s, ops_per_row(spec) * n * m
                    / rates.flops("float64" if storage == torch.float64
                                  else "float32")) * 1e3
+    onchip = ops.batch_route(n, storage, spec.bandwidth, "onchip")
     return {"n": n, "m": m, "sweep_route": dataclasses.asdict(picked),
+            "onchip_route": dataclasses.asdict(onchip),
+            "blocks_per_sm": ops.batch_onchip_blocks_per_sm(
+                storage, onchip.chunks, spec.bandwidth),
             "ms": turns[picked.name]["ms"],
             "ms_q1": turns[picked.name]["ms_q1"],
             "ms_q3": turns[picked.name]["ms_q3"],
+            "onchip_ms": turns["onchip"]["ms"],
+            "onchip_ms_q1": turns["onchip"]["ms_q1"],
+            "onchip_ms_q3": turns["onchip"]["ms_q3"],
             "stream_ms": turns["stream"]["ms"],
             "stream_ms_q1": turns["stream"]["ms_q1"],
             "stream_ms_q3": turns["stream"]["ms_q3"],
@@ -2716,16 +2756,18 @@ def batch_route_pair(spec, n: int, m: int, storage, card: str, gen) -> dict:
 def batch_times(key: str, entry: dict, card: str, gen, ptxas: dict) -> dict:
     """The batch sweep's row: kernel, plain, shared-sweep and library
     times.  ``ms`` is the route (d) or (e) takes, timed in turns with the
-    stream route forced (``stream_ms``; the same route at (e));
+    on-chip route (``onchip_ms``) and the stream route (``stream_ms``)
+    forced;
     ``shared_ms`` is the shared sweep on one factor of the same operator
     at the same N and M (constant mode): the paper's comparison of
     cuThomasConstantBatch / cuPentConstantBatch with cuThomasBatch /
     cuPentBatch.  ``library_ms`` is a batched dense ``lu_solve`` from a
     precomputed ``lu_factor`` of ``LIBRARY_M`` systems, beside the kernel's
-    own time at that M (``ms_at_library_m``).  (d) also gives its tile
-    (systems, chunks, rows), blocks per SM and ptxas report, the same pair
-    of routes at fp64 (at its on-chip route's last N) and at bf16 storage,
-    and the overflow-prone case at its full grid."""
+    own time at that M (``ms_at_library_m``).  Each also gives its on-chip
+    tile (systems, chunks, rows), blocks per SM and ptxas report, the same
+    pair of routes at fp64 (at its on-chip route's last N) and at bf16
+    storage, and the overflow-prone case at its full grid on the on-chip
+    route."""
     import torch
     from repro_torch.core import dense_penta, dense_tridiag, penta, tridiag
     from repro_torch.kernels import engine, ops
@@ -2741,8 +2783,29 @@ def batch_times(key: str, entry: dict, card: str, gen, ptxas: dict) -> dict:
     rhs = torch.randn(n, m, generator=gen, device="cuda")
     turns = route_turns(
         lambda which: ops.batch_sweep_cuda(spec, diags, rhs, route=which),
-        "stream", picked.name)
+        "stream", "onchip")
     stats, stream = turns[picked.name], turns["stream"]
+    onchip = ops.batch_route(n, torch.float32, bw, "onchip")
+    tile = {}
+    if picked.name != "onchip":
+        # the tile the rule does not take, forced: held to its plain
+        # version in its chunks and to the system (its residual)
+        got = ops.batch_sweep_cuda(spec, diags, rhs, route="onchip")
+        want = ops.batch_sweep_plain(spec, diags, rhs, chunks=onchip.chunks)
+        tile_err = (got - want).abs().max().item()
+        check(tile_err <= 1e-5 * want.abs().max().item(),
+              f"({key}) on-chip tile vs plain max|Δ| {tile_err:.3e}")
+        del want
+        resid = (torch.linalg.vector_norm(banded_matvec(system, got) - rhs)
+                 / torch.linalg.vector_norm(rhs)).item()
+        check(resid <= 1e-4, f"({key}) on-chip tile residual {resid:.3e} > "
+                             "1e-4")
+        del got
+        tile = {"onchip_max_abs_err": tile_err, "onchip_residual": resid,
+                "onchip_plain_ms": event_ms(
+                    lambda: ops.batch_sweep_plain(spec, diags, rhs,
+                                                  chunks=onchip.chunks),
+                    reps=3, warmup=1)}
     plain_ms = event_ms(lambda: ops.batch_sweep_plain(spec, diags, rhs),
                         reps=5, warmup=1)
     got = ops.batch_sweep_cuda(spec, diags, rhs)
@@ -2798,30 +2861,30 @@ def batch_times(key: str, entry: dict, card: str, gen, ptxas: dict) -> dict:
           f"{distinct_err:.3e} > {_TOLERANCE['float32']}")
     del diags, rhs, got, want
     torch.cuda.empty_cache()
-    extra = {}
-    if picked.name == "onchip":
-        diags, rhs = overflow_batch_operands(n, m, gen)
-        got = ops.batch_sweep_cuda(spec, diags, rhs)
-        check(torch.isfinite(got).all().item(),
-              f"({key}) overflow case at the full grid is not finite")
-        overflow_err = rel_err(got, ops.batch_sweep_plain(spec, diags, rhs))
-        check(overflow_err <= _TOLERANCE["float32"],
-              f"({key}) overflow case at the full grid: kernel vs plain "
-              f"{overflow_err:.3e}")
-        del diags, rhs, got
-        torch.cuda.empty_cache()
-        extra = {
-            "tile": {"systems": 32, "chunks": picked.chunks,
-                     "rows": picked.rows},
-            "blocks_per_sm": ops.batch_onchip_blocks_per_sm(torch.float32,
-                                                            picked.chunks),
-            "overflow_rel_err": overflow_err,
-            "ptxas": batch_ptxas(ptxas),
-            "fp64": batch_route_pair(
-                spec, ops.batch_onchip_max_rows(torch.float64), m,
-                torch.float64, card, gen),
-            "bf16": batch_route_pair(spec, n, m, torch.bfloat16, card, gen),
-        }
+    diags, rhs = overflow_batch_operands(n, m, gen, bw)
+    got = ops.batch_sweep_cuda(spec, diags, rhs, route="onchip")
+    check(torch.isfinite(got).all().item(),
+          f"({key}) overflow case at the full grid is not finite")
+    overflow_err = rel_err(got, ops.batch_sweep_plain(spec, diags, rhs,
+                                                      chunks=onchip.chunks))
+    check(overflow_err <= _TOLERANCE["float32"],
+          f"({key}) overflow case at the full grid: kernel vs plain "
+          f"{overflow_err:.3e}")
+    del diags, rhs, got
+    torch.cuda.empty_cache()
+    extra = {
+        "tile": {"systems": 32, "chunks": onchip.chunks,
+                 "rows": onchip.rows},
+        "blocks_per_sm": ops.batch_onchip_blocks_per_sm(
+            torch.float32, onchip.chunks, bw),
+        "overflow_rel_err": overflow_err,
+        "ptxas": batch_ptxas(ptxas),
+        "fp64": batch_route_pair(
+            spec, ops.batch_onchip_max_rows(torch.float64, bw), m,
+            torch.float64, card, gen),
+        "bf16": batch_route_pair(spec, n, m, torch.bfloat16, card, gen),
+        **tile,
+    }
     bound_ms, bound_by = bound(spec, n, m, card)
     floor = spec.traffic_bytes(n, m, torch.float32)
     return {
@@ -2832,7 +2895,8 @@ def batch_times(key: str, entry: dict, card: str, gen, ptxas: dict) -> dict:
         "also_replaces": ["src/repro/kernels/engine.py:963",
                           "src/repro/kernels/engine.py:984",
                           "src/repro/kernels/engine.py:1002"],
-        "launches": entry["launches"],
+        "launches": entry["route_launches"].get(picked.name, 0),
+        "route_launches": entry["route_launches"],
         "max_abs_err": max_abs_err,
         "ms": stats["ms"], "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -2844,10 +2908,38 @@ def batch_times(key: str, entry: dict, card: str, gen, ptxas: dict) -> dict:
         "ms_q3": stats["ms_q3"], "reps": stats["reps"],
         "sweep_route": dataclasses.asdict(picked),
         "gbps": floor / stats["ms"] / 1e6,
+        "kernel": _BATCH_KERNELS[bw][picked.name],
+        "onchip_ms": turns["onchip"]["ms"],
+        "onchip_ms_q1": turns["onchip"]["ms_q1"],
+        "onchip_ms_q3": turns["onchip"]["ms_q3"],
         "stream_ms": stream["ms"], "stream_ms_q1": stream["ms_q1"],
         "stream_ms_q3": stream["ms_q3"],
         "stream_gbps": floor / stream["ms"] / 1e6,
         **extra,
+    }
+
+
+def onchip_tile_row(row: dict) -> dict:
+    """The on-chip tile's own kernels row, from the row of a case whose
+    rule streams ((e)): its launches on the main path (counted under
+    ``"<spec name>/onchip"``), its time, error against the plain version in
+    its chunks, that plain version's time and its residual."""
+    launches = row["route_launches"].get("onchip", 0)
+    return {
+        "name": row["name"].replace("/N", "/onchip/N"),
+        "kernel": _BATCH_KERNELS[5 if "penta" in row["name"] else 3]
+        ["onchip"], "route": "cuda",
+        "source": row["source"], "replaces": row["replaces"],
+        "launches": launches, "on_main_path": launches > 0,
+        "max_abs_err": row["onchip_max_abs_err"],
+        "ms": row["onchip_ms"], "ms_q1": row["onchip_ms_q1"],
+        "ms_q3": row["onchip_ms_q3"], "plain_ms": row["onchip_plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"], "case": row["case"],
+        "residual": row["onchip_residual"],
+        "stream_ms": row["stream_ms"], "tile": row["tile"],
+        "blocks_per_sm": row["blocks_per_sm"],
+        "fp64": row["fp64"], "bf16": row["bf16"],
     }
 
 
@@ -3398,7 +3490,10 @@ def phase_times(main: dict, card: str, ptxas: dict) -> list:
                                      entry[f"fused_cn_{kind}_partition"],
                                      card, gen, ptxas))
         elif entry["system"].mode == "batch":
-            add(batch_times(key, entry, card, gen, ptxas))
+            row = batch_times(key, entry, card, gen, ptxas)
+            add(row)
+            if "onchip_residual" in row:
+                add(onchip_tile_row(row))
         else:
             title, n, m, _make = main_path_cases()[key]
             add(shared_times(key, title, n, m, entry, card, gen, ptxas))
@@ -3423,12 +3518,17 @@ def phase_analysis() -> dict:
     sharded cells in a one-rank gloo group under the former alone; its
     launches exactly those of the cases it ran, its skips JAX's); then the
     lint; ``gridcheck`` with every CUDA source's ``<source>_spans`` export
-    held against the Python rules over the whole grid (no launch); the
-    mutation self-test on the CPU (every class caught, every patched object
-    restored, no launch).  Fails on any finding."""
+    held against the Python rules over the whole grid (no launch);
+    ``carryprobe`` on every partitioned cell (a NaN- and a zero-filled
+    workspace give the same finite output, two counted launches a cell; a
+    sentinel in each row block's entry carries changes that block's rows
+    and no others); the mutation self-test on the CPU (every class caught,
+    every patched object restored, no launch), then its two card classes
+    (the carry workspace's, caught by ``carryprobe``, the launch builders
+    restored).  Fails on any finding."""
     import torch
-    from repro_torch.analysis import (gridcheck, mutation, nansweep,
-                                      speccheck, tracecheck)
+    from repro_torch.analysis import (carryprobe, gridcheck, mutation,
+                                      nansweep, speccheck, tracecheck)
     from repro_torch.kernels import fused_cn, ops
 
     t0 = time.perf_counter()
@@ -3499,6 +3599,31 @@ def phase_analysis() -> dict:
     check(not ops.LAUNCHES, f"the self-test launched {dict(ops.LAUNCHES)}")
     seconds["mutation"] = time.perf_counter() - t
 
+    t = time.perf_counter()
+    ops.reset_launches()
+    probed = carryprobe.sweep("cuda")
+    torch.cuda.synchronize()
+    probe_launches = dict(ops.LAUNCHES)
+    check(not probed.findings,
+          "carryprobe: " + "; ".join(map(str, probed.findings[:10])))
+    check(probed.cells == len(carryprobe.cells()) and probed.blocks
+          == 2 * probed.cells, f"carryprobe probed {probed.cells} cells and "
+          f"{probed.blocks} row blocks")
+    check(probe_launches == probed.launches, f"carryprobe launches "
+          f"{probe_launches}, expected {probed.launches}")
+    seconds["carryprobe"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    before = mutation.card_patch_targets()
+    card_results = mutation.card_self_test()
+    after = mutation.card_patch_targets()
+    missed = [r.name for r in card_results if not r.detected]
+    check(not missed and len(card_results) == len(mutation.CARD_MUTATIONS),
+          f"the card mutation classes missed {missed}")
+    check(all(after[k] is before[k] for k in before),
+          "the card mutation classes left a launch builder patched")
+    seconds["card_mutation"] = time.perf_counter() - t
+
     row = {"phase": "analysis", "seconds": time.perf_counter() - t0,
            "part_seconds": seconds, "speccheck_findings": 0,
            "nansweep_findings": 0, "launches": launches,
@@ -3508,7 +3633,11 @@ def phase_analysis() -> dict:
                           "launches": trace_launches},
            "gridcheck": {"rules": grid.rules, "spans": grid.spans,
                          "compared_with_cuda": grid.compared},
-           "mutation": {r.name: len(r.evidence) for r in results}}
+           "mutation": {r.name: len(r.evidence) for r in results},
+           "carryprobe": {"cells": probed.cells, "blocks": probed.blocks,
+                          "launches": probe_launches},
+           "card_mutation": {r.name: len(r.evidence)
+                             for r in card_results}}
     emit(row)
     return row
 

@@ -25,8 +25,13 @@ with no error.  The checkers:
     ``SolveMeta`` hashable, the gated recurrences alike; then ``lint``, an
     AST lint of the calls that bring a value to the host in the solve
     packages (``# speclint: allow-concretize`` marks a host-side site).
+  * ``carryprobe`` — on the card, the partitioned routes' carry
+    workspace: a NaN- and a zero-filled workspace give the same finite
+    output, and a sentinel in a row block's entry carries changes that
+    block's rows and nothing else.
   * ``mutation`` — a self-test that seeds one defect per class in the
-    real port objects and requires its checker to report it.
+    real port objects and requires its checker to report it (eight
+    classes on the CPU, two more on the card for ``carryprobe``).
   * ``nansweep`` — a registry-driven sweep of every spec over every route
     the port has for it, at ragged, dead-lane and aligned shapes: on the
     CPU each route's plain version under a dispatch mode that raises on
@@ -36,10 +41,7 @@ with no error.  The checkers:
 
 What has no counterpart: the reference's capture of ``pl.pallas_call``
 records and its VMEM recount (the port traces no kernel; ``capture``
-recounts operands), its streamed and fused sibling specs, and its
-carry-protocol probe with the two mutation classes that seed it
-(``dropped-reset-carry``, ``forgotten-descend-mirror``): ``gridcheck``'s
-and ``mutation``'s docstrings say why.
+recounts operands) and its streamed and fused sibling specs.
 
 CLI: ``python -m repro_torch.analysis`` (add ``--self-test`` /
 ``--nan-sweep`` / ``--all``, and ``--device cpu`` off the card).
@@ -55,7 +57,7 @@ class Finding:
     """One verification failure: which checker, on what, and why."""
 
     checker: str   # "speccheck" | "gridcheck" | "tracecheck" | "astlint"
-                   # | "nansweep" | "mutation"
+                   # | "nansweep" | "carryprobe" | "mutation"
     subject: str   # spec name, rule[n= …], backend/mode combo, file:line
     message: str
 
@@ -65,15 +67,18 @@ class Finding:
 
 def run_all(verbose: bool = False, device: str = "cuda") -> list:
     """Every checker over the full current registry and route rules, on
-    ``device`` (``"cuda"``, the default, raises without a card; the CPU
-    runs the plain versions and gridcheck's Python leg); returns the
-    findings (empty: clean)."""
-    from . import gridcheck, speccheck, tracecheck
+    ``device`` (``"cuda"``, the default, raises without a card, and adds
+    ``carryprobe``; the CPU runs the plain versions and gridcheck's Python
+    leg); returns the findings (empty: clean)."""
+    from . import carryprobe, gridcheck, speccheck, tracecheck
 
     findings = []
-    for name, runner in (("speccheck", speccheck.run),
-                         ("gridcheck", lambda: gridcheck.run(device)),
-                         ("tracecheck", lambda: tracecheck.run(device))):
+    runners = [("speccheck", speccheck.run),
+               ("gridcheck", lambda: gridcheck.run(device)),
+               ("tracecheck", lambda: tracecheck.run(device))]
+    if device == "cuda":
+        runners.append(("carryprobe", carryprobe.run))
+    for name, runner in runners:
         got = runner()
         if verbose:
             print(f"{name}: {len(got)} finding(s)")

@@ -2,9 +2,11 @@
 
 Exit code 0 = clean, 1 = findings (or a missed mutation).  Modes:
 
-  (default)     run speccheck + gridcheck + tracecheck (with the lint)
+  (default)     run speccheck + gridcheck + tracecheck (with the lint),
+                and on the card the carry probe
   --self-test   run the mutation self-test (each seeded defect class must
-                be caught by its checker; on the CPU)
+                be caught by its checker; the eight CPU classes, and on
+                the card the two carry-workspace classes)
   --nan-sweep   run the registry-driven sweep of every kernel route
   --all         everything above
 
@@ -64,6 +66,8 @@ def main(argv=None) -> int:
         if verbose:
             print("mutation self-test:")
         results = mutation.self_test(verbose=verbose)
+        if args.device == "cuda":
+            results += mutation.card_self_test(verbose=verbose)
         missed = [r.name for r in results if not r.detected]
         if missed:
             print(f"mutation self-test MISSED: {', '.join(missed)}",

@@ -17,7 +17,9 @@ the spans it gives must:
     the kernel sizes its shared memory for) and the parts of one split
     within a row of each other (``chunk_bounds``' contract), every chunk a
     row (two for the penta CN step's carries), at most ``MAX_CHUNKS``
-    chunks; the batch chunks at most ``BATCH_ROWS`` rows; and the
+    chunks; the batch chunks at most ``batch_onchip_rows`` rows (both
+    bandwidths, the pentadiagonal tile also where its dtype streams, as a
+    forced route); and the
     route's validity check (``ops._check_split``,
     ``fused_cn._check_chunks``) accepts what the rule picks;
   * **fit shared memory**: the tile at the largest N the rule sends on
@@ -45,16 +47,9 @@ functions that need only the built library, launching nothing; the leg
 asks for a card all the same, as every entry point of the port does
 unless told ``device="cpu"``, which runs the Python leg alone.
 
-JAX's carry-protocol probe (a sentinel carry at ``k == 0``) has no
-counterpart here.  Its port analogue is that a partitioned row block's
-entry carries come only from K1–K2: on the card K3 reads them from a
-workspace that ``ops._shared_launch`` / ``fused_cn._fused_launch``
-allocate inside the call and K2 writes whole, which no caller can seed
-with a sentinel; in the plain versions (``ops.chain_blocks``) block 0's
-carries are a literal zero, so a probe there would test the literal.  A
-K2 that skipped a block would leave garbage that ``nansweep``'s card leg
-does not see either (it fills the output, not the workspace): an open
-item (ROADMAP Queue 3).
+JAX's carry-protocol probe (a sentinel carry at ``k == 0``) is
+``carryprobe``, a module of its own beside this one: it seeds the
+partitioned routes' workspace through the wrappers' ``work=`` on the card.
 """
 
 from __future__ import annotations
@@ -180,7 +175,7 @@ class _Exports:
         i, p, ll = ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_longlong
         sigs = {"shared_sweep": [i, i, i, ll, i, i, i, p, i],
                 "fused_cn": [i, i, i, ll, i, i, p, i],
-                "batch_sweep": [i, i, ll, i, p, i],
+                "batch_sweep": [i, i, i, ll, i, p, i],
                 "recurrence_sweep": [i, i, ll, i, p, i]}
         self.fns = {}
         for name, argtypes in sigs.items():
@@ -277,15 +272,40 @@ def _shared(res: Checked, cuda) -> None:
                     r.tile_m, cap=1), "shared_sweep", res)
 
 
+def _batch_route(sub: str, n: int, dtype, bw: int, r, res: Checked,
+                 cuda) -> None:
+    """One batch route's spans: in Python, its tile's shared memory, and
+    against ``batch_sweep.cu``'s export."""
+    if r.name == "stream":
+        spans = [(0, n)]
+    else:
+        most = ops.batch_onchip_chunks(dtype, bw)
+        spans = ops.batch_chunk_spans(n, r.chunks)
+        if r.rows != -(-n // r.chunks) or r.chunks > most:
+            res.findings.append(Finding(
+                "gridcheck", sub, f"{r.chunks} chunks of {r.rows} rows: at "
+                f"most {most} chunks of ceil(N / chunks)"))
+        smem = ops.batch_onchip_smem(dtype, bw, r.chunks)
+        if smem > ops.SMEM_PER_BLOCK:
+            res.findings.append(Finding(
+                "gridcheck", sub, f"{smem} bytes of shared memory, past "
+                f"{ops.SMEM_PER_BLOCK} (shared memory)"))
+    res.spans += len(spans)
+    check_spans(sub, n, spans, res.findings,
+                max_rows=ops.batch_onchip_rows(dtype, bw)
+                if r.name == "onchip" else None)
+    if cuda is not None:
+        _compare(sub, spans, cuda.spans(
+            "batch_sweep", _DTYPE_CODES[dtype], bw, _ROUTE_CODES[r.name], n,
+            r.chunks, cap=len(spans)), "batch_sweep", res)
+
+
 def _batch(res: Checked, cuda) -> None:
     for dtype in SHARED_DTYPES:
         tag = str(dtype).split(".")[-1]
-        n_max = ops.batch_onchip_max_rows(dtype)
-        most = ops.batch_onchip_chunks(dtype)
-        storage = dtype.itemsize
         for bw in (3, 5):
-            top = n_max + BATCH_PAST if bw == 3 else BATCH_PAST
-            for n in range(1, top + 1):
+            n_max = ops.batch_onchip_max_rows(dtype, bw)
+            for n in range(1, n_max + BATCH_PAST + 1):
                 r = ops.batch_route(n, dtype, bw)
                 sub = f"batch_route[n={n} {tag} bw={bw} {r.name}]"
                 res.rules += 1
@@ -294,35 +314,12 @@ def _batch(res: Checked, cuda) -> None:
                     res.findings.append(Finding(
                         "gridcheck", sub, f"route {r.name}, expected {want}"))
                     continue
-                if r.name == "stream":
-                    spans = [(0, n)]
-                else:
-                    spans = ops.batch_chunk_spans(n, r.chunks)
-                    if r.rows != -(-n // r.chunks) or r.chunks > most:
-                        res.findings.append(Finding(
-                            "gridcheck", sub, f"{r.chunks} chunks of "
-                            f"{r.rows} rows: at most {most} chunks of "
-                            f"ceil(N / chunks)"))
-                    # the planes of batch_onchip_kernel (batch_sweep.cu's
-                    # onchip_smem): a and d at the storage type, eight
-                    # summary words at the compute type, a chunk and lane
-                    smem = (2 * r.chunks * ops.BATCH_ROWS * storage
-                            + 8 * r.chunks * ops._compute_itemsize(dtype)) \
-                        * ops.TILE_M
-                    if smem > ops.SMEM_PER_BLOCK:
-                        res.findings.append(Finding(
-                            "gridcheck", sub, f"{smem} bytes of shared "
-                            f"memory, past {ops.SMEM_PER_BLOCK} (shared "
-                            f"memory)"))
-                res.spans += len(spans)
-                check_spans(sub, n, spans, res.findings,
-                            max_rows=ops.BATCH_ROWS if r.name == "onchip"
-                            else None)
-                if cuda is not None:
-                    _compare(sub, spans, cuda.spans(
-                        "batch_sweep", _DTYPE_CODES[dtype],
-                        _ROUTE_CODES[r.name], n, r.chunks,
-                        cap=len(spans)), "batch_sweep", res)
+                _batch_route(sub, n, dtype, bw, r, res, cuda)
+                if r.name == "stream" and n <= n_max:
+                    # the tile the rule does not pick, forced
+                    _batch_route(sub + " onchip forced", n, dtype, bw,
+                                 ops.batch_route(n, dtype, bw, "onchip"),
+                                 res, cuda)
 
 
 def _recurrence_spans(n: int, windows: list, reverse: bool) -> list:

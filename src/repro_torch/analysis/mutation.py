@@ -7,8 +7,8 @@ the REAL port object in place (a pass table entry, a span function, a
 method, the eps plumbing), runs the checker that owns the class and
 requires a finding that names it.  Each mutation is a context manager
 that puts the original object back, the very same one, however the probe
-ends.  Everything runs on the CPU (``tracecheck`` at ``device="cpu"``,
-``gridcheck``'s Python leg).
+ends.  The first eight classes run on the CPU (``tracecheck`` at
+``device="cpu"``, ``gridcheck``'s Python leg; ``self_test``).
 
 Defect classes:
 
@@ -38,12 +38,22 @@ Defect classes:
      ``tracecheck`` on the uniform penta cells and by the lint on the
      mutated ``ops.py`` text; both must fire.
 
-JAX's ``dropped-reset-carry`` and ``forgotten-descend-mirror`` seed Pallas
-grid defects (a ``reset_carry`` that does nothing, a fused kernel's output
-index map that forgets to mirror the descend walk): the port has no
-carry scratch between grid steps and no ascend/descend index map, and
-``gridcheck`` has no carry probe (its docstring says why), so they have
-no counterpart.
+Two more classes seed the partitioned routes' carry workspace, the port's
+counterpart of JAX's carry scratch between grid steps; they run on the
+card only (``card_self_test``; the plain versions have no workspace) and
+only ``carryprobe`` must catch them:
+
+  9. **dropped-reset-carry** — a partitioned launch that runs K0, K1 and
+     K3 but skips K2, so K3 reads whatever the workspace held;
+     ``carryprobe``'s dead-stale-state half ("stale state").
+ 10. **forgotten-descend-mirror** — K3's descent reading the mirrored row
+     block's backward entry carries (block B − 1 − b's for block b), as a
+     descend index map that forgets to mirror would: seeded on the host,
+     where the launch permutes those carries in the workspace just before
+     K3; ``carryprobe``'s carries-take-part half ("outside its rows").
+
+Both patch the two launch builders (``ops._shared_launch``,
+``fused_cn._fused_launch``), which every partitioned launch goes through.
 """
 
 from __future__ import annotations
@@ -54,10 +64,10 @@ import pathlib
 
 import torch
 
-from repro_torch.kernels import engine, ops
+from repro_torch.kernels import engine, fused_cn, ops
 
 from . import Finding
-from . import gridcheck, lint, speccheck, tracecheck
+from . import carryprobe, gridcheck, lint, speccheck, tracecheck
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,10 +244,107 @@ _MUTATIONS = (
 )
 
 
-def self_test(verbose: bool = False) -> list:
-    """Run every seeded defect; returns one MutationResult per class."""
+def _wrap_partition(restage):
+    """Both launch builders patched so that every partitioned launch of a
+    whole solve (stage 0) or of K3 alone (stage 4) runs ``restage(launch,
+    stage, carries)`` instead, ``carries`` the (B, 2, order, M) entry
+    carries of its workspace (one is allocated here when the caller gave
+    none)."""
+    shared = ops.__dict__["_shared_launch"]
+    fused = fused_cn.__dict__["_fused_launch"]
+
+    def wrap(launch, carries):
+        def run(stage: int = 0) -> None:
+            if stage in (0, 4):
+                restage(launch, stage, carries)
+            else:
+                launch(stage)
+        return run
+
+    def bad_shared(spec, lhs, rhs, eps, route, chunks, tile_m, out=None,
+                   work=None):
+        n, m = rhs.shape
+        r = ops.shared_route(n, rhs.dtype, route)
+        if r.name != "partition":
+            return shared(spec, lhs, rhs, eps, route, chunks, tile_m, out,
+                          work)
+        size = ops.partition_work_elems(spec.order, r.row_blocks, n, m)
+        if work is None:
+            work = torch.empty((size,), dtype=engine.compute_dtype(rhs.dtype),
+                               device=rhs.device)
+        launch, x = shared(spec, lhs, rhs, eps, route, chunks, tile_m, out,
+                           work)
+        return wrap(launch, ops.partition_carries(
+            work, r.row_blocks, spec.order, m)), x
+
+    def bad_fused(kind, bandwidth, operands, c, which, chunks, out=None,
+                  work=None):
+        n, m = c.shape
+        blocks = fused_cn.row_blocks(n, c.dtype, "partition")
+        picked = fused_cn.route(n, c.dtype)[0] if which is None else which
+        if picked != "partition":
+            return fused(kind, bandwidth, operands, c, which, chunks, out,
+                         work)
+        if work is None:
+            work = torch.empty((fused_cn.work_elems(kind, n, m, blocks),),
+                               dtype=c.dtype, device=c.device)
+        launch, x, which = fused(kind, bandwidth, operands, c, which, chunks,
+                                 out, work)
+        return wrap(launch, ops.partition_carries(
+            work, blocks, bandwidth // 2, m)), x, which
+
+    @contextlib.contextmanager
+    def both():
+        with _attribute(ops, "_shared_launch", bad_shared), \
+                _attribute(fused_cn, "_fused_launch", bad_fused):
+            yield
+
+    return both()
+
+
+def _dropped_reset_carry():
+    def restage(launch, stage, carries):
+        if stage == 0:
+            launch(1)
+            launch(2)
+        launch(4)
+
+    return _wrap_partition(restage)
+
+
+def _forgotten_descend_mirror():
+    def restage(launch, stage, carries):
+        if stage == 0:
+            for k in (1, 2, 3):
+                launch(k)
+        carries[:, 1] = carries[:, 1].flip(0).clone()
+        launch(4)
+
+    return _wrap_partition(restage)
+
+
+def _carry_probe() -> list:
+    return carryprobe.run("cuda")
+
+
+#: The classes that need the card: (name, mutation, probe, match).
+CARD_MUTATIONS = (
+    ("dropped-reset-carry", _dropped_reset_carry, _carry_probe,
+     "stale state"),
+    ("forgotten-descend-mirror", _forgotten_descend_mirror, _carry_probe,
+     "outside its rows"),
+)
+
+
+def card_patch_targets() -> dict:
+    """What the card classes patch, by name."""
+    return {"ops._shared_launch": ops.__dict__["_shared_launch"],
+            "fused_cn._fused_launch": fused_cn.__dict__["_fused_launch"]}
+
+
+def _run(mutations, verbose: bool) -> list:
     results = []
-    for name, mutate, probe, match in _MUTATIONS:
+    for name, mutate, probe, match in mutations:
         with mutate():
             findings = probe()
         hits = tuple(f for f in findings if match in f.message)
@@ -246,3 +353,17 @@ def self_test(verbose: bool = False) -> list:
             mark = "caught" if hits else "MISSED"
             print(f"  {name:28s} {mark} ({len(hits)} finding(s))")
     return results
+
+
+def self_test(verbose: bool = False) -> list:
+    """Run every seeded defect of the CPU classes; returns one
+    MutationResult per class."""
+    return _run(_MUTATIONS, verbose)
+
+
+def card_self_test(verbose: bool = False) -> list:
+    """Run the card classes (``CARD_MUTATIONS``); raises without a card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the card mutation classes need a CUDA card; "
+                           "torch.cuda.is_available() is False")
+    return _run(CARD_MUTATIONS, verbose)

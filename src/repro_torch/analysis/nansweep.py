@@ -8,7 +8,7 @@ from the engine ``REGISTRY`` and the port's routes, so a new spec or route
 is swept the day it lands:
 
   * every ``REGISTRY`` spec on every route the port has for it — shared:
-    on chip, partitioned, serial; batch: on chip (tridiagonal), stream;
+    on chip, partitioned, serial; batch: on chip, stream;
     recurrence: tile, walk — and both fused CN steps
     (``kernels/fused_cn.py``) on chip, partitioned and global;
   * the reference's three shape classes (``CASES``): ragged (45 x 70),
@@ -146,12 +146,8 @@ def kinds() -> list:
 
 
 def routes(layout: str, spec) -> tuple:
-    """The routes the port has for ``spec``: a pentadiagonal batch system
-    has no on-chip route."""
-    out = ROUTES[layout]
-    if layout == "batch" and spec.bandwidth == 5:
-        out = tuple(r for r in out if r[0] != "onchip")
-    return out
+    """The routes the port has for ``spec``."""
+    return ROUTES[layout]
 
 
 def case_rows(route: str, n: int, device: str) -> int:

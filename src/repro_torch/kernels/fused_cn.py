@@ -380,11 +380,13 @@ def _check_chunks(name: str, rows: int, dtype, bandwidth: int,
 
 
 def _fused_launch(kind: str, bandwidth: int, operands: dict, c: torch.Tensor,
-                  which: str | None, chunks: int | None, out=None) -> tuple:
+                  which: str | None, chunks: int | None, out=None,
+                  work=None) -> tuple:
     """Validate device, dtype and contiguity, pick the route (``which``, or
     ``route(N, dtype)`` when None), its row blocks and the tile routes'
     chunks (``chunks``, or ``chunk_count`` of a block's rows), allocate x
-    (and the partitioned route's workspace; x is ``out`` when given).
+    (and the partitioned route's workspace; x is ``out`` and the workspace
+    ``work`` when given, each validated).
     ``operands`` are lhs, z / Z,
     [Minv,] params in the C argument order.  Returns ``(launch(stage), x,
     route)``: ``launch(stage)`` runs the ``fused_cn`` entry point of
@@ -425,12 +427,9 @@ def _fused_launch(kind: str, bandwidth: int, operands: dict, c: torch.Tensor,
             raise ValueError(f"{name}: the tile routes read a row of Z as "
                              "16-byte loads; Z must be 16-byte aligned")
     x = _ops.output_buffer(name, out, (n, m), c.dtype, c.device)
-    work = None
-    if which == "partition" and m:
-        order = bandwidth // 2
-        work = torch.empty(4 * blocks * order * m + 3 * blocks * order ** 2
-                           + 2 * order * n + (1 if kind == "tridiag" else 4)
-                           * m, dtype=c.dtype, device=c.device)
+    work = _ops.partition_work(name, work, which == "partition",
+                               work_elems(kind, n, m, blocks), c.dtype,
+                               c.device)
     ptrs = [t.data_ptr() for t in operands.values()]
     if bandwidth == 3:
         ptrs.insert(2, None)   # no Minv
@@ -453,12 +452,22 @@ def _fused_launch(kind: str, bandwidth: int, operands: dict, c: torch.Tensor,
     return launch, x, which
 
 
+def work_elems(kind: str, n: int, m: int, blocks: int) -> int:
+    """Elements of the partitioned route's workspace for ``kind``'s step
+    at (N, M) in ``blocks`` row blocks: ``ops.partition_work_elems`` with
+    the corner corrections (1 row of M for the diffusion step, 4 for
+    hyperdiffusion)."""
+    return _ops.partition_work_elems(1 if kind == "tridiag" else 2, blocks,
+                                     n, m, 1 if kind == "tridiag" else 4)
+
+
 def _launch(kind: str, bandwidth: int, operands: dict, c: torch.Tensor,
-            which: str | None, chunks: int | None, out=None) -> torch.Tensor:
+            which: str | None, chunks: int | None, out=None,
+            work=None) -> torch.Tensor:
     """One step on the route ``which`` (default: ``route``'s), counted
     once in ``LAUNCHES`` under ``launch_name``."""
     launch, x, which = _fused_launch(kind, bandwidth, operands, c, which,
-                                     chunks, out)
+                                     chunks, out, work)
     launch()
     traffic = tridiag_traffic_bytes if kind == "tridiag" \
         else penta_traffic_bytes
@@ -489,16 +498,17 @@ def _operands(kind: str, operands: tuple, c: torch.Tensor) -> dict:
     return dict(zip(names, operands))
 
 
-def partition_stages(kind: str, *operands) -> dict:
+def partition_stages(kind: str, *operands, out=None, work=None) -> dict:
     """``{"k0": f, …, "k3": f}`` for the partitioned route on ``operands``
     (those of ``fused_cn_tridiag_cuda`` / ``fused_cn_penta_cuda``, the
-    field last): each call launches one of K0–K3 alone, on one workspace,
-    to time them; each reads what the last launch of the one before it
-    wrote.  Not counted in ``LAUNCHES``: a stage is not a step."""
+    field last): each call launches one of K0–K3 alone, on one workspace
+    (``work`` when given) and into one x (``out``), to time or probe them;
+    each reads what the last launch of the one before it wrote.  Not
+    counted in ``LAUNCHES``: a stage is not a step."""
     *ops_, c = operands
     launch, _, _ = _fused_launch(kind, 3 if kind == "tridiag" else 5,
                                  _operands(kind, ops_, c), c, "partition",
-                                 None)
+                                 None, out, work)
     return {f"k{stage - 1}": (lambda stage=stage: launch(stage))
             for stage in (1, 2, 3, 4)}
 
@@ -523,25 +533,28 @@ def onchip_blocks_per_sm(n: int, dtype, bandwidth: int,
 
 def fused_cn_tridiag_cuda(lhs, z, params, c, *, route: str | None = None,
                           chunks: int | None = None,
-                          out: torch.Tensor | None = None) -> torch.Tensor:
+                          out: torch.Tensor | None = None,
+                          work: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the diffusion step of ``csrc/fused_cn.cu`` on the route
     ``route(N, dtype)`` picks, or on the one forced here (``"onchip"``,
     ``"partition"`` or ``"global"``); the tile routes in ``chunk_count``
-    chunks of a row block, or in ``chunks`` (to time others).  Raises on
-    a route that cannot take N; nothing falls back."""
+    chunks of a row block, or in ``chunks`` (to time others); the
+    partitioned route on ``work`` when given (``work_elems`` elements).
+    Raises on a route that cannot take N; nothing falls back."""
     return _launch("tridiag", 3, _operands("tridiag", (lhs, z, params), c),
-                   c, route, chunks, out)
+                   c, route, chunks, out, work)
 
 
 def fused_cn_penta_cuda(lhs, zz, minv, params, c, *,
                         route: str | None = None,
                         chunks: int | None = None,
-                        out: torch.Tensor | None = None) -> torch.Tensor:
+                        out: torch.Tensor | None = None,
+                        work: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the hyperdiffusion step of ``csrc/fused_cn.cu`` as
     ``fused_cn_tridiag_cuda`` launches the diffusion step."""
     return _launch("penta", 5,
                    _operands("penta", (lhs, zz, minv, params), c), c, route,
-                   chunks, out)
+                   chunks, out, work)
 
 
 def _dispatch(name: str, cuda_fn, plain_fn, operands: tuple, c):

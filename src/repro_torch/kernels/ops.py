@@ -31,15 +31,16 @@ The per-system-LHS half (cuThomasBatch / cuPentBatch):
   * ``batch_sweep`` dispatches the same way, to ``csrc/batch_sweep.cu``
     or to ``batch_sweep_plain``;
   * ``batch_route(N, dtype, bandwidth)`` picks the kernel's route: on chip
-    for tridiagonal systems up to ``batch_onchip_max_rows`` (512 at
-    float32 and bf16, 256 at float64: each system's rows split into row
-    chunks whose factor is joined by a fold of 2×2 companion products,
-    every intermediate kept on the SM), else stream (one thread walks a
-    whole system, the factor and intermediate through device memory).
-    The plain version takes the same chunks and repeats that order (and,
-    pentadiagonal, any chunks in the six-minor split's order, which no
-    kernel runs yet); ``batch_sweep_cuda`` takes a forced ``route=`` to
-    time one against the other.
+    up to ``batch_onchip_max_rows(dtype, bandwidth)`` (tridiagonal: 512 at
+    float32 and bf16, 256 at float64, each system's rows split into row
+    chunks whose factor is joined by a fold of 2×2 companion products;
+    pentadiagonal: 512 at float32 and bf16, 256 at float64, joined by a
+    fold of 6×6 products of the six-minor split, a forced route only:
+    the rule streams every pentadiagonal system; every intermediate kept
+    on the SM), else stream (one thread walks a whole system, the factor
+    and intermediate through device memory).  The plain version takes the
+    same chunks and repeats that order; ``batch_sweep_cuda`` takes a
+    forced ``route=`` to time one against the other.
 
 The gated recurrences (``h_i = p_i h_{i-1} + q_i`` and order 2):
 
@@ -61,10 +62,13 @@ The gated recurrences (``h_i = p_i h_{i-1} + q_i`` and order 2):
 ``LAUNCHES`` counts the kernels' launches by spec name, and
 ``LAUNCH_BYTES`` the least bytes those launches must move (each input read
 once, each output written once); both are bumped where a kernel launches
-and nowhere else.  The ``*_cuda`` wrappers take an internal ``out=``, a
+and nowhere else.  ``BATCH_ROUTE_LAUNCHES`` counts the batch sweep's
+launches again by ``"<spec name>/<route>"``, to tell its kernels apart.  The ``*_cuda`` wrappers take an internal ``out=``, a
 buffer the kernel writes x into, so that a check can fill it first
 (``repro_torch.analysis.nansweep`` fills it with NaN to show every element
-written).
+written); the partitioned routes also take ``work=``, their workspace of
+``partition_work_elems`` elements (``repro_torch.analysis.carryprobe``
+fills it with NaN, zeros and a sentinel in the entry carries).
 """
 
 from __future__ import annotations
@@ -108,6 +112,9 @@ LAUNCHES: dict = {}
 #: The byte floor of those launches by spec name: the traffic a launch
 #: must move at its operands' shapes and types.
 LAUNCH_BYTES: dict = {}
+#: The batch sweep's launches by ``"<spec name>/<route>"``
+#: (``penta_batch/stream``…): which of its kernels ran.
+BATCH_ROUTE_LAUNCHES: dict = {}
 
 DEFAULT_THREADS = 256
 # The tile kernels' geometry, as in ``csrc/shared_sweep.cu`` and
@@ -122,11 +129,17 @@ SMEM_PER_BLOCK = 232_448
 #: Bytes of column in one row block of the shared sweep's partitioned route.
 ROW_BLOCK_BYTES = 2048
 SHARED_ROUTES = ("onchip", "partition", "serial")
-#: The batch sweep's routes (``csrc/batch_sweep.cu``): on chip (tridiagonal,
-#: at most ``batch_onchip_chunks`` row chunks of BATCH_ROWS rows a block of
-#: TILE_M systems) and stream (one thread a system).
+#: The batch sweep's routes (``csrc/batch_sweep.cu``): on chip (at most
+#: ``batch_onchip_chunks`` row chunks of ``batch_onchip_rows`` rows a block
+#: of TILE_M systems) and stream (one thread a system).
 BATCH_ROUTES = ("onchip", "stream")
+#: Rows a chunk of the tridiagonal on-chip route holds at most.
 BATCH_ROWS = 16
+#: The pentadiagonal on-chip route (``batch_penta_kernel``): rows a chunk at
+#: most, and row chunks a block at most by compute itemsize (one plane of a
+#: block's 32 systems is 64 KiB at N_max either way).
+PENTA_ROWS = 32
+PENTA_CHUNKS = {4: 16, 8: 8}
 _BATCH_ROUTE_CODES = {"stream": 0, "onchip": 1}
 #: A chunk's companion product is rescaled by a power of two when its
 #: largest entry leaves [1 / RESCALE_AT, RESCALE_AT].
@@ -161,6 +174,7 @@ _STORAGE_ALIASES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
 def reset_launches() -> None:
     LAUNCHES.clear()
     LAUNCH_BYTES.clear()
+    BATCH_ROUTE_LAUNCHES.clear()
 
 
 def count_launch(name: str, nbytes: int) -> None:
@@ -169,17 +183,53 @@ def count_launch(name: str, nbytes: int) -> None:
     LAUNCH_BYTES[name] = LAUNCH_BYTES.get(name, 0) + nbytes
 
 
-def output_buffer(name: str, out, shape: tuple, dtype, device
-                  ) -> torch.Tensor:
+def output_buffer(name: str, out, shape: tuple, dtype, device, *,
+                  what: str = "out") -> torch.Tensor:
     """``out`` once it is a contiguous ``shape`` tensor of ``dtype`` on
-    ``device``; a new ``torch.empty`` when it is None."""
+    ``device``; a new ``torch.empty`` when it is None.  ``what`` names the
+    argument in the error."""
     if out is None:
         return torch.empty(shape, dtype=dtype, device=device)
     if (tuple(out.shape) != tuple(shape) or out.dtype != dtype
             or out.device != device or not out.is_contiguous()):
-        raise ValueError(f"{name}: out must be a contiguous {tuple(shape)} "
-                         f"{dtype} tensor on {device}")
+        raise ValueError(f"{name}: {what} must be a contiguous "
+                         f"{tuple(shape)} {dtype} tensor on {device}")
     return out
+
+
+def partition_work_elems(order: int, blocks: int, n: int, m: int,
+                         corrections: int = 0) -> int:
+    """Elements (compute type) of the partitioned route's workspace, as
+    ``csrc/shared_sweep.cu`` and ``csrc/fused_cn.cu`` lay it out: K1's
+    summaries and K2's entry carries, (B, 2, order, M) each; K0's block
+    coefficients (B, 3, order, order) and summary weights (2, order, N);
+    the fused steps' corner corrections (``corrections`` rows of M: 1 for
+    the diffusion step, 4 for hyperdiffusion)."""
+    return (4 * blocks * order * m + 3 * blocks * order * order
+            + 2 * order * n + corrections * m)
+
+
+def partition_work(name: str, work, partitioned: bool, size: int, dtype,
+                   device) -> torch.Tensor | None:
+    """The partitioned route's workspace: ``work`` once it is a contiguous
+    ``(size,)`` tensor of ``dtype`` on ``device``, a new ``torch.empty``
+    when None (none off that route); a workspace handed to another route
+    raises."""
+    if not partitioned:
+        if work is not None:
+            raise ValueError(f"{name}: only the partitioned route takes a "
+                             "workspace")
+        return None
+    return output_buffer(name, work, (size,), dtype, device, what="work")
+
+
+def partition_carries(work: torch.Tensor, blocks: int, order: int, m: int
+                      ) -> torch.Tensor:
+    """The (B, 2, order, M) view of K2's entry carries in ``work``: [b, 0]
+    block b's forward carries (f_{s-1}, f_{s-2}), [b, 1] its backward ones
+    (y_e, y_{e+1}), which K3 reads."""
+    at = 2 * blocks * order * m
+    return work[at:2 * at].view(blocks, 2, order, m)
 
 
 def canonical_storage_dtype(storage_dtype):
@@ -631,11 +681,12 @@ def _kernel(name: str):
 
 
 def _shared_launch(spec, lhs, rhs, eps, route, chunks, tile_m,
-                   out=None) -> tuple:
+                   out=None, work=None) -> tuple:
     """Validate the operands and the route, allocate x (and the partitioned
-    route's workspace); returns ``(launch(stage), x)``, where
-    ``launch(stage)`` runs the whole solve (stage 0) or one of K0–K3
-    (stages 1–4) and raises on a CUDA error.  Counts nothing."""
+    route's workspace, unless ``work`` is given); returns
+    ``(launch(stage), x)``, where ``launch(stage)`` runs the whole solve
+    (stage 0) or one of K0–K3 (stages 1–4) and raises on a CUDA error.
+    Counts nothing."""
     n, m = rhs.shape
     operands = [lhs, rhs] + ([] if eps is None else [eps])
     if any(not t.is_cuda or t.device != rhs.device for t in operands):
@@ -667,11 +718,9 @@ def _shared_launch(spec, lhs, rhs, eps, route, chunks, tile_m,
         _check_split(n, picked.row_blocks, chunks)
     cdt = compute_dtype(rhs.dtype)
     out = output_buffer("shared_sweep", out, (n, m), cdt, rhs.device)
-    work = None
-    if picked.name == "partition" and m:
-        order, b = spec.order, picked.row_blocks
-        work = torch.empty(4 * b * order * m + 3 * b * order * order
-                           + 2 * order * n, dtype=cdt, device=rhs.device)
+    work = partition_work("shared_sweep", work, picked.name == "partition",
+                          partition_work_elems(spec.order, picked.row_blocks,
+                                               n, m), cdt, rhs.device)
     fn = _kernel("shared_sweep")
     desc = (ctypes.c_int * 11)(*sweep_desc(spec))
 
@@ -697,27 +746,33 @@ def shared_sweep_cuda(spec: SweepSpec, lhs: torch.Tensor, rhs: torch.Tensor,
                       eps: torch.Tensor | None = None, *,
                       route: str | None = None, chunks: int | None = None,
                       tile_m: int | None = None,
-                      out: torch.Tensor | None = None) -> torch.Tensor:
+                      out: torch.Tensor | None = None,
+                      work: torch.Tensor | None = None) -> torch.Tensor:
     """Launch ``csrc/shared_sweep.cu`` on the current stream, on the route
     ``shared_route(N, dtype)`` picks.  ``route``, ``chunks`` and ``tile_m``
     force another choice, to time one against another; a route that cannot
     take N raises, and nothing falls back.  Validates device, dtype, shape
-    and contiguity and raises on what the kernel does not take; raises when
-    a launch reports a CUDA error.  Counts one launch a solve."""
+    and contiguity (of ``out`` and the partitioned route's ``work`` too,
+    when given) and raises on what the kernel does not take; raises when a
+    launch reports a CUDA error.  Counts one launch a solve."""
     launch, out = _shared_launch(spec, lhs, rhs, eps, route, chunks, tile_m,
-                                 out)
+                                 out, work)
     launch()
     count_launch(spec.name, spec.traffic_bytes(*rhs.shape, rhs.dtype))
     return out
 
 
 def partition_stages(spec: SweepSpec, lhs: torch.Tensor, rhs: torch.Tensor,
-                     eps: torch.Tensor | None = None) -> dict:
+                     eps: torch.Tensor | None = None, *,
+                     out: torch.Tensor | None = None,
+                     work: torch.Tensor | None = None) -> dict:
     """``{"k0": f, …, "k3": f}``: each call launches one of the
-    partitioned route's kernels alone, on one workspace, to time them;
-    each reads what the last launch of the one before it wrote.  Not
-    counted in ``LAUNCHES``: a stage is not a solve."""
-    launch, _ = _shared_launch(spec, lhs, rhs, eps, "partition", None, None)
+    partitioned route's kernels alone, on one workspace (``work`` when
+    given) and into one x (``out``), to time or probe them; each reads
+    what the last launch of the one before it wrote.  Not counted in
+    ``LAUNCHES``: a stage is not a solve."""
+    launch, _ = _shared_launch(spec, lhs, rhs, eps, "partition", None, None,
+                               out, work)
     return {f"k{stage - 1}": (lambda stage=stage: launch(stage))
             for stage in (1, 2, 3, 4)}
 
@@ -758,17 +813,42 @@ def shared_sweep(spec: SweepSpec, lhs: torch.Tensor, rhs: torch.Tensor,
 # The batch sweep: kernel, plain version, dispatch
 # ---------------------------------------------------------------------------
 
-def batch_onchip_chunks(dtype) -> int:
+def batch_onchip_chunks(dtype, bandwidth: int = 3) -> int:
     """Row chunks a block of the batch sweep's on-chip route takes at
-    most: 32 at float compute (float32 and bf16 storage), 16 at float64,
-    whose registers are twice as wide."""
+    most: tridiagonal 32 at float compute (float32 and bf16 storage), 16
+    at float64, whose registers are twice as wide; pentadiagonal
+    ``PENTA_CHUNKS`` of the compute itemsize (16 at float compute, 8 at
+    float64)."""
+    if bandwidth == 5:
+        return PENTA_CHUNKS[_compute_itemsize(dtype)]
     return 32 if _compute_itemsize(dtype) == 4 else 16
 
 
-def batch_onchip_max_rows(dtype) -> int:
+def batch_onchip_rows(dtype, bandwidth: int = 3) -> int:
+    """Rows a chunk of the on-chip route holds at most: ``BATCH_ROWS``
+    (tridiagonal), ``PENTA_ROWS`` (pentadiagonal)."""
+    return PENTA_ROWS if bandwidth == 5 else BATCH_ROWS
+
+
+def batch_onchip_max_rows(dtype, bandwidth: int = 3) -> int:
     """The largest N of the batch sweep's on-chip route: 512 at float32
-    and bf16 storage, 256 at float64."""
-    return batch_onchip_chunks(dtype) * BATCH_ROWS
+    and bf16 storage, 256 at float64, either bandwidth."""
+    return batch_onchip_chunks(dtype, bandwidth) * batch_onchip_rows(
+        dtype, bandwidth)
+
+
+def batch_onchip_smem(dtype, bandwidth: int, chunks: int) -> int:
+    """Bytes of shared memory the on-chip kernel of ``bandwidth`` takes in
+    ``chunks`` chunks (``onchip_smem`` / ``penta_smem`` of
+    ``csrc/batch_sweep.cu``): tridiagonal, the a and d planes at the
+    storage type and 8 summary words a chunk at the compute type;
+    pentadiagonal, the a, d and e planes and the folds' region (12 words a
+    chunk), at the compute type; a block of TILE_M systems."""
+    size = _compute_itemsize(dtype)
+    if bandwidth == 3:
+        return (2 * chunks * BATCH_ROWS * dtype.itemsize
+                + 8 * chunks * size) * TILE_M
+    return (3 * PENTA_ROWS + 12) * chunks * size * TILE_M
 
 
 @dataclasses.dataclass(frozen=True)
@@ -786,23 +866,25 @@ class BatchRoute:
 def batch_route(n: int, dtype, bandwidth: int,
                 which: str | None = None) -> BatchRoute:
     """The route of the batch sweep at (N, dtype, bandwidth): ``"onchip"``
-    for tridiagonal systems up to ``batch_onchip_max_rows``, in the fewest
-    chunks of at most ``BATCH_ROWS`` rows, else ``"stream"``: a
-    shape rule, not a fallback.  ``which`` names a route to take instead;
-    ``"onchip"`` past its rows or for a pentadiagonal system raises.  A
-    pure function of its arguments."""
-    n_max = batch_onchip_max_rows(dtype)
+    for tridiagonal systems up to ``batch_onchip_max_rows(dtype, 3)``, in
+    the fewest chunks of at most ``batch_onchip_rows`` rows, else
+    ``"stream"``: a shape rule, not a fallback.  Every pentadiagonal
+    system streams: its on-chip tile ran slower than the stream kernel on
+    an H100 (PERF.md §6, row 4b).  ``which`` names a route to take
+    instead; ``"onchip"`` past its rows raises.  A pure function of its
+    arguments."""
+    if bandwidth not in (3, 5):
+        raise ValueError(f"batch_sweep: bandwidth must be 3 or 5, got "
+                         f"{bandwidth}")
+    n_max = batch_onchip_max_rows(dtype, bandwidth)
     if which is None:
         which = "onchip" if bandwidth == 3 and n <= n_max else "stream"
     if which == "onchip":
-        if bandwidth != 3:
-            raise ValueError("batch_sweep: the on-chip route solves "
-                             "tridiagonal systems only; pentadiagonal ones "
-                             "take the stream route")
         if n > n_max:
             raise ValueError(f"batch_sweep: N = {n} is past the on-chip "
-                             f"route's {n_max} rows at {dtype}")
-        chunks = max(1, -(-n // BATCH_ROWS))
+                             f"route's {n_max} rows at {dtype} (bandwidth "
+                             f"{bandwidth})")
+        chunks = max(1, -(-n // batch_onchip_rows(dtype, bandwidth)))
         return BatchRoute("onchip", chunks, max(1, -(-n // chunks)))
     if which == "stream":
         return BatchRoute("stream", 1, n)
@@ -936,10 +1018,8 @@ def _plucker_row(p: list, a, b, c, d, e) -> list:
 
 
 def _penta_chunked(diags, rhs: torch.Tensor, chunks: int) -> torch.Tensor:
-    """The pentadiagonal six-minor split's order, all chunks at once: a
-    chunked plain version of the penta batch sweep that no kernel runs yet
-    (every penta batch system streams; a split tile of 16 systems a block
-    lost to the stream kernel, PERF.md §6).
+    """The pentadiagonal on-chip route's order (``batch_penta_kernel``,
+    the six-minor split), all chunks at once.
 
     1. Each chunk's 6×6 product of its rows' ``_plucker_row`` maps,
        rescaled row by row by a power of two (chunk 0 keeps only its
@@ -1082,7 +1162,7 @@ def batch_sweep_plain(spec: SweepSpec, diags, rhs: torch.Tensor, *,
     coefficients kept in a workspace, then the descending ``_BATCH_BWD``
     pass.  More chunks run a chunked order: the tridiagonal on-chip
     route's (``_batch_chunked``) or, pentadiagonal, the six-minor split's
-    (``_penta_chunked``), which no kernel runs yet.  ``diags`` are the
+    (``_penta_chunked``), the pentadiagonal on-chip route's.  ``diags`` are the
     ``bandwidth`` (N, M) diagonals, sub-most first.  bf16 operands compute
     (and return) fp32, as the kernel does."""
     cdt = compute_dtype(rhs.dtype)
@@ -1144,11 +1224,13 @@ def batch_sweep_cuda(spec: SweepSpec, diags, rhs: torch.Tensor, *,
     route's (order, N, M) coefficient workspace is allocated here, the
     on-chip route needs none.  ``route`` forces the other route, to time
     one against the other, and ``chunks`` the on-chip route's row chunks
-    (1..``batch_onchip_chunks``, at most ``BATCH_ROWS`` rows each); a route
+    (1..``batch_onchip_chunks``, at most ``batch_onchip_rows`` rows
+    each); a route
     that cannot take the system raises, and nothing falls back.  Validates
     device, dtype, shape and contiguity and raises on what the kernel does
     not take; raises when the launch reports a CUDA error.  Counts one
-    launch a solve under the spec's name."""
+    launch a solve under the spec's name and, in
+    ``BATCH_ROUTE_LAUNCHES``, under ``"<spec name>/<route>"``."""
     n, m = rhs.shape
     operands = [*diags, rhs]
     if spec.layout != "batch" or len(diags) != spec.bandwidth:
@@ -1167,12 +1249,13 @@ def batch_sweep_cuda(spec: SweepSpec, diags, rhs: torch.Tensor, *,
         raise ValueError("batch_sweep: operands must be contiguous")
     picked = batch_route(n, rhs.dtype, spec.bandwidth, route)
     if chunks is not None:
-        most = batch_onchip_chunks(rhs.dtype)
+        most = batch_onchip_chunks(rhs.dtype, spec.bandwidth)
+        rows = batch_onchip_rows(rhs.dtype, spec.bandwidth)
         if picked.name != "onchip" or not (
-                1 <= chunks <= most and -(-n // chunks) <= BATCH_ROWS):
+                1 <= chunks <= most and -(-n // chunks) <= rows):
             raise ValueError(f"batch_sweep: chunks={chunks} needs the "
                              f"on-chip route, 1..{most} chunks of at most "
-                             f"{BATCH_ROWS} rows")
+                             f"{rows} rows")
         picked = dataclasses.replace(picked, chunks=chunks,
                                      rows=-(-n // chunks))
     cdt = compute_dtype(rhs.dtype)
@@ -1197,18 +1280,21 @@ def batch_sweep_cuda(spec: SweepSpec, diags, rhs: torch.Tensor, *,
         raise RuntimeError(f"batch_sweep ({picked.name} route) launch "
                            f"failed: CUDA error {rc}")
     count_launch(spec.name, spec.traffic_bytes(n, m, rhs.dtype))
+    key = f"{spec.name}/{picked.name}"
+    BATCH_ROUTE_LAUNCHES[key] = BATCH_ROUTE_LAUNCHES.get(key, 0) + 1
     return out
 
 
-def batch_onchip_blocks_per_sm(dtype, chunks: int) -> int:
-    """Blocks of the batch sweep's on-chip kernel in ``chunks`` chunks
-    that one SM holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
-    needs the card."""
+def batch_onchip_blocks_per_sm(dtype, chunks: int, bandwidth: int = 3
+                               ) -> int:
+    """Blocks of the batch sweep's on-chip kernel of ``bandwidth`` in
+    ``chunks`` chunks that one SM holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs the card."""
     fn = build.load("batch_sweep").batch_sweep_onchip_blocks
     fn.restype = ctypes.c_int
-    fn.argtypes = [_C_INT, _C_INT, ctypes.POINTER(_C_INT)]
+    fn.argtypes = [_C_INT, _C_INT, _C_INT, ctypes.POINTER(_C_INT)]
     blocks = ctypes.c_int(0)
-    rc = fn(_DTYPE_CODES[dtype], chunks, ctypes.byref(blocks))
+    rc = fn(_DTYPE_CODES[dtype], bandwidth, chunks, ctypes.byref(blocks))
     if rc != 0:
         raise RuntimeError(f"batch_sweep_onchip_blocks: CUDA error {rc}")
     return blocks.value

@@ -16,8 +16,11 @@ chip (32 systems a block, their rows in chunks of 16 joined by folds of
 the factor's 2×2 companion products and of the linear carries, each
 operand read once and x written once); past that, and every
 pentadiagonal system, streamed (one thread a system, the factor and
-intermediate through device memory).  On CPU tensors the same calls run
-the kernels' plain versions (``kernels.ops``), in the route's chunks.
+intermediate through device memory).  A pentadiagonal on-chip tile exists
+(``route="onchip"`` of ``kernels.ops.batch_sweep_cuda``) but ran slower
+than the stream kernel, so the rule never takes it.  On CPU tensors the
+same calls run the kernels' plain versions (``kernels.ops``), in the
+route's chunks.
 
 Periodic boundaries: the kernel solves the truncated band; the rank-1
 Sherman-Morrison (tridiag) / rank-4 Woodbury (penta) corner corrections

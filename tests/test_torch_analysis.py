@@ -118,7 +118,8 @@ def test_nansweep_covers_every_route_and_runs_clean():
         nansweep.FUSED)
     assert {(s, r) for s, r, _ in SWEEP if s == "thomas_constant"} == {
         ("thomas_constant", r) for r in ops.SHARED_ROUTES}
-    assert {r for s, r, _ in SWEEP if s == "penta_batch"} == {"stream"}
+    assert {r for s, r, _ in SWEEP if s == "penta_batch"} == set(
+        ops.BATCH_ROUTES)
     assert nansweep.run("cpu") == []
 
 

@@ -2,13 +2,17 @@
 the CPU, as ``tests/test_analysis.py`` runs the JAX package's: every
 seeded defect class is caught by its checker, the host sync by both
 ``tracecheck`` and the lint, and the self-test leaves every patched table,
-function and method the very object it found."""
+function and method the very object it found.  The two card classes (the
+carry workspace's) are listed, patch the two launch builders and put them
+back, and need the card; they run in ``tests/test_torch_cuda.py``."""
 
 from __future__ import annotations
 
 import pytest
+import torch
 
 from repro_torch.analysis import mutation, speccheck
+from repro_torch.kernels import fused_cn, ops
 
 NAMES = [m[0] for m in mutation._MUTATIONS]
 
@@ -51,3 +55,31 @@ def test_mutations_fully_reverted(results):
     for name in before:
         assert after[name] is before[name], name
     assert speccheck.run() == []
+
+
+def test_card_classes_listed_apart_from_the_eight():
+    assert [m[0] for m in mutation.CARD_MUTATIONS] == [
+        "dropped-reset-carry", "forgotten-descend-mirror"]
+    assert not set(NAMES) & {m[0] for m in mutation.CARD_MUTATIONS}
+    assert all(m[2] is mutation._carry_probe
+               for m in mutation.CARD_MUTATIONS)
+
+
+@pytest.mark.parametrize("defect", mutation.CARD_MUTATIONS,
+                         ids=[m[0] for m in mutation.CARD_MUTATIONS])
+def test_card_class_patches_the_launch_builders_and_restores_them(defect):
+    _, mutate, _, _ = defect
+    before = mutation.card_patch_targets()
+    with mutate():
+        assert ops._shared_launch is not before["ops._shared_launch"]
+        assert fused_cn._fused_launch is not before["fused_cn._fused_launch"]
+    after = mutation.card_patch_targets()
+    for key in before:
+        assert after[key] is before[key], key
+
+
+def test_card_self_test_needs_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the card classes run there")
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        mutation.card_self_test()

@@ -287,8 +287,9 @@ def test_batch_route_refusals(dtype):
     n_max = tops.batch_onchip_max_rows(dtype)
     with pytest.raises(ValueError, match="past the on-chip"):
         tops.batch_route(n_max + 1, dtype, 3, "onchip")
-    with pytest.raises(ValueError, match="tridiagonal"):
-        tops.batch_route(37, dtype, 5, "onchip")
+    with pytest.raises(ValueError, match="past the on-chip"):
+        tops.batch_route(tops.batch_onchip_max_rows(dtype, 5) + 1, dtype, 5,
+                         "onchip")
     with pytest.raises(ValueError, match="route must be"):
         tops.batch_route(37, dtype, 3, "partition")
 

@@ -377,18 +377,89 @@ def test_batch_onchip_route_rescales_overflowing_products(n, cuda_device):
 @pytest.mark.parametrize("dtype", (torch.float32, torch.float64,
                                    torch.bfloat16))
 def test_batch_forced_onchip_refusals(dtype, cuda_device):
-    """A forced on-chip launch past N_max or for a pentadiagonal system
-    raises and launches nothing."""
+    """A forced on-chip launch past its N_max (tridiagonal and
+    pentadiagonal, each its own) raises and launches nothing."""
     tri, pen = engine.REGISTRY["thomas_batch"], engine.REGISTRY["penta_batch"]
     n = ops.batch_onchip_max_rows(dtype) + 1
     *diags, rhs = _batch_operands(3, n, 64, dtype, seed=1)
-    *pdiags, prhs = _batch_operands(5, 37, 64, dtype, seed=2)
+    *pdiags, prhs = _batch_operands(5, ops.batch_onchip_max_rows(dtype, 5)
+                                    + 1, 64, dtype, seed=2)
     before = dict(ops.LAUNCHES)
     with pytest.raises(ValueError, match="past the on-chip"):
         ops.batch_sweep_cuda(tri, diags, rhs, route="onchip")
-    with pytest.raises(ValueError, match="tridiagonal"):
+    with pytest.raises(ValueError, match="past the on-chip"):
         ops.batch_sweep_cuda(pen, pdiags, prhs, route="onchip")
     assert ops.LAUNCHES == before
+
+
+def _penta_edge_n(n, dtype) -> int:
+    """``n``, or the penta on-chip route's chunk rows L either side
+    ("L-1", "L", "L+1"), its last N ("n_max") and the first past it."""
+    if isinstance(n, int):
+        return n
+    rows = ops.batch_onchip_rows(dtype, 5)
+    n_max = ops.batch_onchip_max_rows(dtype, 5)
+    return {"L-1": rows - 1, "L": rows, "L+1": rows + 1, "n_max": n_max,
+            "n_max+1": n_max + 1}[n]
+
+
+@pytest.mark.parametrize("n", (1, 2, 3, "L-1", "L", "L+1", 37, "n_max",
+                               "n_max+1"))
+@pytest.mark.parametrize("storage", sorted(STORAGES))
+def test_penta_routes_match_chunked_plain(storage, n, cuda_device):
+    """The pentadiagonal batch sweep on the route it picks, on the stream
+    route forced and, up to its last N, on the on-chip route forced
+    (``batch_penta_kernel``), each against the plain version in its own
+    chunks at a ragged M; each solve counted once under ``penta_batch``."""
+    spec = engine.REGISTRY["penta_batch"]
+    dtype = _TORCH_STORAGE[storage]
+    n = _penta_edge_n(n, dtype)
+    *diags, rhs = _batch_operands(5, n, 333, dtype, seed=n)
+    fits = n <= ops.batch_onchip_max_rows(dtype, 5)
+    picked = ops.batch_route(n, dtype, 5)
+    assert picked.name == "stream"
+    for route in dict.fromkeys((picked.name, "stream")
+                               + ("onchip",) * fits):
+        r = ops.batch_route(n, dtype, 5, route)
+        want = ops.batch_sweep_plain(spec, diags, rhs, chunks=r.chunks)
+        before = ops.LAUNCHES.get(spec.name, 0)
+        got = ops.batch_sweep_cuda(spec, diags, rhs, route=route)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES[spec.name] == before + 1
+        assert got.is_cuda and got.dtype == want.dtype
+        assert _rel(got, want) <= STORAGES[storage], r
+
+
+@pytest.mark.parametrize("n", (40, 512))
+def test_penta_onchip_route_rescales_overflowing_products(n, cuda_device):
+    """c in [1e3, 2e3]: a chunk's unscaled 6×6 product overflows fp32; the
+    on-chip kernel stays finite and agrees with the plain version in its
+    chunks and with the sequential sweep."""
+    spec = engine.REGISTRY["penta_batch"]
+    rng = np.random.default_rng(n + 5)
+    arrays = [rng.uniform(-1, 1, (n, 333)) for _ in range(5)]
+    arrays[2] = rng.uniform(1e3, 2e3, (n, 333))
+    arrays.append(rng.normal(size=(n, 333)))
+    *diags, rhs = [torch.from_numpy(x).to("cuda", torch.float32)
+                   for x in arrays]
+    r = ops.batch_route(n, torch.float32, 5, "onchip")
+    got = ops.batch_sweep_cuda(spec, diags, rhs, route="onchip")
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert _rel(got, ops.batch_sweep_plain(spec, diags, rhs,
+                                           chunks=r.chunks)) <= 1e-5
+    assert _rel(got, ops.batch_sweep_plain(spec, diags, rhs,
+                                           chunks=1)) <= 1e-5
+
+
+def test_penta_onchip_blocks_per_sm(cuda_device):
+    """One block an SM at the tile's last N at every storage type, and a
+    chunk count past the tile refused."""
+    for dtype in (torch.float32, torch.bfloat16, torch.float64):
+        most = ops.batch_onchip_chunks(dtype, 5)
+        assert ops.batch_onchip_blocks_per_sm(dtype, most, 5) == 1
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            ops.batch_onchip_blocks_per_sm(dtype, most + 1, 5)
 
 
 # ---------------------------------------------------------------------------
@@ -956,6 +1027,71 @@ def test_gridcheck_against_the_cuda_sources(cuda_device):
     assert res.findings == []
     assert res.spans > 10 ** 6 and res.compared == res.spans
     assert not ops.LAUNCHES
+
+
+def test_carry_probe_on_the_card(cuda_device):
+    """Every partitioned cell: the NaN- and zero-filled workspaces give
+    bitwise-equal finite outputs (two counted launches a cell), and the
+    sentinel in each row block's entry carries changes that block's rows
+    and no others."""
+    from repro_torch.analysis import carryprobe
+    ops.reset_launches()
+    res = carryprobe.sweep("cuda")
+    torch.cuda.synchronize()
+    assert res.findings == []
+    assert res.cells == len(carryprobe.cells()) == 8
+    assert res.blocks == 2 * res.cells
+    assert dict(ops.LAUNCHES) == res.launches
+    assert sum(res.launches.values()) == 2 * res.cells
+
+
+def test_card_mutations_caught_by_the_probe(cuda_device):
+    """The K2-less launch and the unmirrored descent are each caught by the
+    carry probe alone, and the launch builders are put back."""
+    from repro_torch.analysis import mutation
+    before = mutation.card_patch_targets()
+    results = mutation.card_self_test()
+    assert [r.name for r in results] == [m[0] for m in
+                                         mutation.CARD_MUTATIONS]
+    for r in results:
+        assert r.detected, r.name
+        assert {f.checker for f in r.evidence} == {"carryprobe"}
+    after = mutation.card_patch_targets()
+    assert all(after[k] is before[k] for k in before)
+
+
+@pytest.mark.parametrize("shared", (True, False))
+def test_partitioned_launches_refuse_a_wrong_workspace(shared, cuda_device):
+    """A workspace of the wrong size or dtype, or one given to a route
+    without one, raises before any launch."""
+    from repro_torch.analysis import carryprobe, nansweep
+    subject, layout, spec = [c for c in carryprobe.cells()
+                             if (c[1] == "shared") == shared][0]
+    n, m = carryprobe.N_ROWS, carryprobe.M_COLS
+    args, rhs = nansweep.operands(layout, spec, n, m)
+    args = [None if a is None else a.cuda().contiguous() for a in args]
+    rhs = rhs.cuda()
+    size = carryprobe.geometry(layout, spec, n, m)[2]
+
+    def call(work, route="partition"):
+        if shared:
+            lhs, eps = args
+            return ops.shared_sweep_cuda(spec, lhs, rhs, eps, route=route,
+                                         work=work)
+        from repro_torch.kernels import fused_cn
+        fn = fused_cn.fused_cn_tridiag_cuda if "tridiag" in subject \
+            else fused_cn.fused_cn_penta_cuda
+        return fn(*args, rhs, route=route, work=work)
+
+    before = dict(ops.LAUNCHES)
+    for bad in (torch.zeros(size - 1, device="cuda"),
+                torch.zeros(size, device="cuda", dtype=torch.float64)):
+        with pytest.raises(ValueError, match="work must be"):
+            call(bad)
+    with pytest.raises(ValueError, match="only the partitioned route"):
+        call(torch.zeros(size, device="cuda"), route="global" if not shared
+             else "serial")
+    assert ops.LAUNCHES == before
 
 
 def test_run_all_on_the_card(cuda_device):

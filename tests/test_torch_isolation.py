@@ -45,7 +45,7 @@ print(len(names), ",".join(subpackages), ",".join(leaked))
 SUBPACKAGES = ["analysis", "ckpt", "configs", "convert", "core", "data",
                "kernels", "launch", "models", "pde", "runtime", "sharding",
                "solver", "train"]
-MODULES = 77
+MODULES = 78
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():

@@ -1,17 +1,19 @@
 """The pentadiagonal batch sweep's six-minor split, in plain torch,
 against the JAX package and dense solves.
 
-``csrc/batch_sweep.cu`` streams every pentadiagonal batch system
-(cuPentBatch): ``ops.batch_route`` picks the stream route at every N, one
-chunk in the sequential sweep's order.  The six-minor split cuts each
-system's rows into P chunks of ceil(N / P) rows, the last one ragged;
-each chunk's 6×6 product of its rows' maps on the six Plücker coordinates
-of the factor's state plane (rescaled by powers of two), a fold to each
-chunk's start in echelon form, the factor re-run from it (its first row in
-that form), and linear folds of two carries for g and for x.
+``csrc/batch_sweep.cu`` solves a pentadiagonal batch system (cuPentBatch)
+on chip up to ``ops.batch_onchip_max_rows(dtype, 5)`` (512 rows at float32
+and bf16 storage, 256 at float64; ``batch_penta_kernel``) only when that
+route is forced: ``ops.batch_route`` streams every pentadiagonal system
+(one chunk in the sequential sweep's order).  The six-minor split cuts each system's rows
+into P chunks of ceil(N / P) rows, the last one ragged; each chunk's 6×6
+product of its rows' maps on the six Plücker coordinates of the factor's
+state plane (rescaled by powers of two), a fold to each chunk's start in
+echelon form, the factor re-run from it (its first row in that form), and
+linear folds of two carries for g and for x.
 ``ops.batch_sweep_plain(..., chunks=P)`` runs that order in plain torch
-(no kernel runs it yet); here it is held, on seeded numpy inputs with
-distinct per-system diagonals and a ragged M, against
+(the CPU dispatch in the route's chunks); here it is held, on seeded numpy
+inputs with distinct per-system diagonals and a ragged M, against
 
   * JAX's batch kernels in interpret mode (resident, the streamed pair,
     the fused call) up to N = 37, and JAX's ``kernels.ref`` oracle at
@@ -23,7 +25,12 @@ distinct per-system diagonals and a ragged M, against
     on every chunk's first row, on the row before it), with one-row
     chunks, and for the rolled adjoint (whose wrapped entries hold a_0,
     a_1, here also zero);
-  * systems whose unscaled chunk products overflow fp32 (c in [1e3, 2e3]).
+  * systems whose unscaled chunk products overflow fp32 (c in [1e3, 2e3]);
+  * at the on-chip route's own edges (N = 1, 2, 3, a chunk's rows L_p − 1,
+    L_p, L_p + 1, its last N and the first past it; L_p = 32 at float32
+    and bf16 and float64), in the route's chunks with e = 0 on every
+    third row, on every chunk's first row and on the row before it: JAX's
+    resident kernel in interpret mode up to N = 64, its oracle past that.
 
 Tolerances (max|Δ| / max|x|): fp32 1e-5, fp64 1e-12 (JAX x64 switched on
 for that case only), bf16 storage 1e-5 (both read the same bf16 operands
@@ -66,8 +73,8 @@ def _edge_ns(storage: str) -> list:
 
 
 def _chunkings(n: int, storage: str) -> list:
-    """The stream route's one chunk, the tridiagonal on-chip route's chunks
-    of L rows (up to N_max), counts whose last chunk is ragged, 32 chunks
+    """The penta route's chunks, the tridiagonal on-chip route's chunks of
+    L rows (up to N_max), counts whose last chunk is ragged, 32 chunks
     and, up to 37 rows, one row a chunk."""
     dt = _TORCH[storage]
     counts = {tops.batch_route(n, dt, 5).chunks}
@@ -291,13 +298,79 @@ def test_plucker_row_is_the_factor_step():
 @pytest.mark.parametrize("storage", sorted(STORAGES))
 def test_cpu_dispatch_runs_the_penta_routes_order(storage):
     """On CPU tensors ``batch_sweep`` runs the plain version in the chunks
-    the kernel's route takes: the stream route's one chunk at every N,
-    the sequential sweep's order."""
+    the kernel's route takes: the stream route's one chunk at every N, up
+    to the on-chip tile's last N and past it, the sequential sweep's
+    order."""
     dtype = np.float64 if storage == "float64" else np.float32
-    for n in (37, 512):
+    n_max = tops.batch_onchip_max_rows(_TORCH[storage], 5)
+    for n in (37, n_max, n_max + 1):
         *diags, rhs = _stored(_inputs(n, m=9, dtype=dtype), storage)
         assert tops.batch_route(n, rhs.dtype, 5) == tops.BatchRoute(
             "stream", 1, n)
         assert torch.equal(
             tops.batch_sweep(SPEC, diags, rhs),
             tops.batch_sweep_plain(SPEC, diags, rhs, chunks=1))
+
+
+def _route_edges(storage: str) -> list:
+    """The on-chip route's edges at ``storage``: 1, 2, 3, a chunk's rows
+    L_p either side, its last N and the first N past it."""
+    dt = _TORCH[storage]
+    rows = tops.batch_onchip_rows(dt, 5)
+    n_max = tops.batch_onchip_max_rows(dt, 5)
+    return sorted({1, 2, 3, rows - 1, rows, rows + 1, n_max, n_max + 1})
+
+
+def _route_chunks(n: int, storage: str) -> int:
+    """The chunks the on-chip tile takes at N, forced (the rule streams),
+    one past its last N."""
+    dt = _TORCH[storage]
+    if n > tops.batch_onchip_max_rows(dt, 5):
+        return tops.batch_route(n, dt, 5).chunks
+    return tops.batch_route(n, dt, 5, "onchip").chunks
+
+
+def _zero_e_inputs(n: int, storage: str) -> list:
+    """``_inputs(n)`` with e = 0 on every third row, on the route's chunks'
+    first rows and on the rows before them."""
+    dtype = np.float64 if storage == "float64" else np.float32
+    arrays = _inputs(n, dtype=dtype, seed=21)
+    starts = _chunk_starts(n, _route_chunks(n, storage))
+    rows = set(range(0, n, 3)) | set(starts) | {s - 1 for s in starts if s}
+    arrays[4][sorted(rows)] = 0
+    return arrays
+
+
+_ROUTE_CASES = [(storage, n) for storage in sorted(STORAGES)
+                for n in _route_edges(storage)]
+
+
+@pytest.mark.parametrize("storage,n", [c for c in _ROUTE_CASES if c[1] <= 64])
+def test_route_order_matches_jax_kernel_at_its_edges(storage, n):
+    """The route's chunked order on zero-e rows against JAX's resident
+    penta batch kernel in interpret mode (one jit a case)."""
+    arrays = _zero_e_inputs(n, storage)
+    with _jax_x64(storage == "float64"):
+        want = np.asarray(jops.penta_batch(
+            *map(jnp.asarray, arrays),
+            storage_dtype="bf16" if storage == "bf16" else None))
+    *diags, rhs = _stored(arrays, storage)
+    got = tops.batch_sweep_plain(SPEC, diags, rhs,
+                                 chunks=_route_chunks(n, storage))
+    assert _rel(got, want) <= STORAGES[storage]
+
+
+@pytest.mark.parametrize("storage,n", [c for c in _ROUTE_CASES if c[1] > 64])
+def test_route_order_matches_jax_reference_at_its_edges(storage, n):
+    """Past N = 64 (the route's last N and the first past it, a chunk's
+    rows + 1 at float32 and bf16): against JAX's jnp oracle, which reads
+    bf16-rounded operands in fp32."""
+    arrays = _zero_e_inputs(n, storage)
+    ref = [_bf16_rounded(x) for x in arrays] if storage == "bf16" \
+        else arrays
+    with _jax_x64(storage == "float64"):
+        want = np.asarray(kref.penta_batch_ref(*map(jnp.asarray, ref)))
+    *diags, rhs = _stored(arrays, storage)
+    got = tops.batch_sweep_plain(SPEC, diags, rhs,
+                                 chunks=_route_chunks(n, storage))
+    assert _rel(got, want) <= STORAGES[storage]
