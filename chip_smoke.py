@@ -50,6 +50,8 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
      adjoint launch a rank a case; each rank's x and rhs gradient bit for
      bit the single-process ``cuda`` backend's columns, the diagonals'
      gradient (one all-reduce) within 1e-5 of its, residuals within 1e-4;
+     ``ops.sharded_solve`` around the shared solve of (a)'s core factor,
+     one launch a rank, its columns bit for bit the single process's;
      each rank's kernel ms (contended when ranks share the card) beside
      the single-process kernel's at the whole M, its peak memory and its
      factor's bytes;
@@ -93,7 +95,12 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
      and the global route in turns, at fp32 and fp64, with the rate on
      the floor bytes, the block's occupancy and ptxas report, the on-chip
      route at 1–16 row chunks, and one step of the ``cuda`` pipeline at
-     the same shape; (k)'s row times the shared sweep at the ADI half
+     the same shape; beside each row, on a ``traffic_model`` line of its
+     own and never in the ``kernels`` line, the bytes the traffic model
+     (``ops.solver_hbm_traffic_bytes``, ``recurrence_hbm_traffic_bytes``,
+     ``fused_cn.route_traffic_bytes``) gives each route of the kernel at
+     the row's shape, and the floor: arithmetic, not a device reading;
+     (k)'s row times the shared sweep at the ADI half
      step's shape, and (l)'s rows the partitioned route at its own, in
      turns with the global route forced, at fp32 and fp64, with each of
      its four launches timed alone and one ``cuda`` pipeline step.  Each
@@ -193,8 +200,11 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
      spans over its N grid held against each CUDA source's
      ``<source>_spans`` export; the mutation self-test (8 classes);
      ``carryprobe`` on every partitioned cell (NaN- and zero-filled
-     workspaces, a sentinel in each row block's entry carries) and the
-     two card mutation classes it must catch;
+     workspaces, a sentinel in each row block's entry carries); every
+     registry spec once through ``ops.entry_point(spec)`` at N 37 × M 333
+     against the same entry point on CPU copies (the plain version), one
+     launch a spec; and the two card mutation classes ``carryprobe`` must
+     catch;
  12. phase ``profile``: the measured leg of ``repro_torch.launch.dryrun``
      on P1 mamba2-130m ``prefill_32k`` (24 layers, the batch that leaves
      10 GB free), P2 mamba2-130m ``train_4k`` (B 8), P3 recurrentgemma-9b
@@ -203,8 +213,12 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` for
      10 GB free): one step timed by CUDA events and one traced a cell,
      each step's hand-kernel launches exact and the trace's equal to the
      counter's, ``mfu``, ``measured_roofline_fraction`` (both of the work
-     that ran) and the device's busy share in (0, 1.05], one line a cell with the top five device ops and the
-     cuts, then the four records through ``roofline_report``;
+     that ran) and the device's busy share in (0, 1.05], one line a cell
+     with the top five device ops, the cuts and the reference's
+     ``variant`` record; P5 mamba2-130m ``train_4k`` with ``no_remat``
+     (the batch that leaves 10 GB free, at most 8: 24 ``recur1`` and 24
+     ``recur1_rev`` a step, no recompute), beside P2's ``measured_s``;
+     then the records through ``roofline_report``;
  13. one summary line (the run's seconds and peak device memory) and one
      ``{"kernels": [...]}`` line.
 
@@ -1032,6 +1046,28 @@ def sharded_case(key: str, card: str) -> dict:
                             f"single-process one {grad_err:.3e} > 1e-5")
     del x1, rhs1, lam_local
     torch.cuda.empty_cache()
+    wrapped = {}
+    if key == "a":
+        # ops.sharded_solve around the shared solve: the replicated core
+        # factor, the rhs cut Shard(1), one launch on this rank's columns,
+        # bit for bit the single process's solve of the whole M there
+        solve_cols = ops.sharded_solve(ops.thomas_constant, mesh, "batch")
+        ops.reset_launches()
+        xs = solve_cols(single.stored.factor, full)
+        torch.cuda.synchronize()
+        wrapped_launches = dict(ops.LAUNCHES)
+        whole = ops.thomas_constant(single.stored.factor, full)
+        wrapped = {"sharded_solve_bitwise": torch.equal(
+                       xs.to_local(), whole[:, lo:hi]),
+                   "sharded_solve_launches": wrapped_launches}
+        check(tuple(xs.shape) == (n, m) and wrapped["sharded_solve_bitwise"],
+              "(r) ops.sharded_solve: this rank's columns differ from the "
+              "single process's solve")
+        check(wrapped_launches == {"thomas_constant": 1},
+              f"(r) ops.sharded_solve launches {wrapped_launches}, expected "
+              "one thomas_constant")
+        del xs, whole
+        torch.cuda.empty_cache()
     # the kernel on this rank's columns and on the whole M, by events
     local = d_local.contiguous()
     if key == "a":
@@ -1084,7 +1120,7 @@ def sharded_case(key: str, card: str) -> dict:
                               reps=5, warmup=1)
         del lu, piv, dense
     bound_ms, bound_by = bound(spec, n, hi - lo, card)
-    row = {"case": key, "n": n, "m": m, "lo": lo, "hi": hi,
+    row = {"case": key, "n": n, "m": m, "lo": lo, "hi": hi, **wrapped,
            "launches": launches, "seconds": seconds, "residual": resid,
            "x_bitwise": x_bitwise, "rhs_grad_bitwise": lam_bitwise,
            "diag_grad_rel_err": grad_err, "max_abs_err": max_abs_err,
@@ -2544,6 +2580,35 @@ def bound(spec, n: int, m: int, card: str) -> tuple:
                   ops_per_row(spec) * n * m, card)
 
 
+def emit_traffic_model(name: str, n: int, m: int, spec=None,
+                       kind: str | None = None) -> None:
+    """Print, on a ``traffic_model`` line of its own and never in the
+    ``kernels`` line, the bytes the traffic model gives one fp32 launch of
+    kernel row ``name`` at (n, m) on each route of its kernel, beside the
+    floor the bound reads: arithmetic on the shape, not a device reading
+    (no DRAM counter is read).  ``spec`` is a sweep or recurrence spec, or
+    ``kind`` a fused CN step's."""
+    from repro_torch.kernels import engine, fused_cn, ops
+    if kind is not None:
+        routes = {r: fused_cn.route_traffic_bytes(kind, n, m, r)
+                  for r in fused_cn.ROUTES}
+        floor = routes["onchip"]
+    elif spec.layout == "recurrence":
+        routes = {r: ops.recurrence_hbm_traffic_bytes(
+                      spec.order, n, m, reverse=spec.reverse, route=r)
+                  for r in engine.ROUTES["recurrence"]}
+        floor = spec.traffic_bytes(n, m)
+    else:
+        routes = {r: ops.solver_hbm_traffic_bytes(
+                      spec.bandwidth, spec.mode, n, m,
+                      transposed=spec.transposed, route=r)
+                  for r in engine.ROUTES[spec.layout]}
+        floor = spec.traffic_bytes(n, m)
+    emit({"phase": "traffic_model", "model": True, "kernel": name,
+          "n": n, "m": m, "floor_bytes": floor, "route_bytes": routes,
+          "route_over_floor": {r: b / floor for r, b in routes.items()}})
+
+
 def kernel_stats(fn) -> dict:
     """Median of 20 CUDA-event timings of ``fn`` with its quartiles."""
     times = event_times(fn, reps=20)
@@ -2668,6 +2733,7 @@ def shared_times(key: str, title: str, n: int, m: int, entry: dict,
     library_ms = event_ms(lambda: torch.linalg.lu_solve(lu, piv, rhs),
                           reps=20 if n <= 512 else 5, warmup=1)
     del lu, piv, lhs, rhs
+    emit_traffic_model(f"shared_sweep/{spec.name}/N{n}xM{m}", n, m, spec)
     return {
         "name": f"shared_sweep/{spec.name}/N{n}xM{m}",
         "route": "cuda",
@@ -2887,6 +2953,7 @@ def batch_times(key: str, entry: dict, card: str, gen, ptxas: dict) -> dict:
     }
     bound_ms, bound_by = bound(spec, n, m, card)
     floor = spec.traffic_bytes(n, m, torch.float32)
+    emit_traffic_model(f"batch_sweep/{spec.name}/N{n}xM{m}", n, m, spec)
     return {
         "name": f"batch_sweep/{spec.name}/N{n}xM{m}",
         "route": "cuda",
@@ -3025,6 +3092,7 @@ def recurrence_times(key: str, launches: int, card: str, gen,
              if key in recurrence_cases(gen) else {})
     mine = stats[picked.name]
     other = "tile" if picked.name == "walk" else "walk"
+    emit_traffic_model(f"recurrence_sweep/{spec.name}/N{n}xM{m}", n, m, spec)
     return {
         "name": f"recurrence_sweep/{spec.name}/N{n}xM{m}",
         "route": "cuda",
@@ -3287,6 +3355,7 @@ def fused_times(key: str, launches: int, card: str, gen,
     replaces = ("src/repro/kernels/fused_cn.py:32" if kind == "tridiag"
                 else "src/repro/kernels/fused_cn_penta.py:31")
     onchip, glob = turns["onchip"], turns["global"]
+    emit_traffic_model(f"{name}/N{n}xM{m}", n, m, kind=kind)
     return {
         "name": f"{name}/N{n}xM{m}",
         "route": "cuda",
@@ -3429,6 +3498,7 @@ def fused_wide_times(kind: str, launches: int, card: str, gen,
     kernels = (f"{name}_tile_kernel<f,1>", f"fused_summary_kernel<f,{order}>",
                f"fused_chain_kernel<f,{order}>",
                f"shared_coef_kernel<f,f,{order},1>")
+    emit_traffic_model(f"{name}_partition/N{n}xM{m}", n, m, kind=kind)
     return {
         "name": f"{name}_partition/N{n}xM{m}",
         "route": "cuda",
@@ -3505,6 +3575,73 @@ def phase_times(main: dict, card: str, ptxas: dict) -> list:
 # whole-step report
 # ---------------------------------------------------------------------------
 
+# the small ragged shape at which phase ``analysis`` drives every registry
+# spec through ``ops.entry_point``
+ENTRY_N, ENTRY_M = 37, 333
+
+
+def entry_call(spec, n: int, m: int, gen) -> tuple:
+    """``(args, kwargs)`` of ``ops.entry_point(spec)`` at (n, m), fp32, on
+    the card, drawn from ``gen`` by the phase's operand helpers: a
+    diagonally dominant factor and the transposed / uniform flags (shared),
+    distinct diagonals in every system (batch), bounded gates and
+    ``reverse`` (recurrence)."""
+    import torch
+    if spec.layout == "recurrence":
+        gates, q = random_recur_operands(spec.order, n, m, torch.float32, gen)
+        return (*gates, q), {"reverse": spec.reverse}
+    if spec.layout == "batch":
+        diags, rhs = random_batch_operands(spec, n, m, torch.float32, gen)
+        return (*diags, rhs), {}
+    kwargs = {"transposed": spec.transposed}
+    if spec.bandwidth == 5:
+        kwargs["uniform"] = spec.uniform
+    rhs = torch.randn(n, m, generator=gen, device="cuda")
+    return (random_factor(spec, n, torch.float32, gen), rhs), kwargs
+
+
+def _to_device(value, device):
+    """A tensor, or a factor dataclass of tensors, on ``device``."""
+    import torch
+    if isinstance(value, torch.Tensor):
+        return value.to(device)
+    return dataclasses.replace(value, **{
+        f.name: _to_device(getattr(value, f.name), device)
+        for f in dataclasses.fields(value)})
+
+
+def entry_point_sweep() -> dict:
+    """Every ``engine.REGISTRY`` spec once through ``ops.entry_point(spec)``
+    on the card at (``ENTRY_N``, ``ENTRY_M``), held to the same entry point
+    on CPU copies of its operands (the plain version, in the route's order)
+    within 1e-5 of the largest entry, the counts set to 0 just before and
+    read just after: exactly one launch under each spec's name."""
+    import torch
+    from repro_torch.kernels import engine, ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    calls = {name: entry_call(spec, ENTRY_N, ENTRY_M, gen)
+             for name, spec in engine.REGISTRY.items()}
+    errs = {}
+    ops.reset_launches()
+    for name, (args, kwargs) in calls.items():
+        entry = ops.entry_point(engine.REGISTRY[name])
+        got = entry(*args, **kwargs)
+        want = entry(*(_to_device(a, "cpu") for a in args), **kwargs)
+        errs[name] = rel_err(got.cpu(), want)
+        check(errs[name] <= 1e-5, f"entry_point({name}) on the card vs the "
+                                  f"plain version: {errs[name]:.3e} > 1e-5")
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    want = {name: 1 for name in engine.REGISTRY}
+    check(launches == want, f"entry_point sweep launches {launches}, "
+                            f"expected {want}")
+    return {"shape": [ENTRY_N, ENTRY_M], "rel_err": errs,
+            "launches": launches,
+            "entries": {name: ops.entry_point(spec).__name__
+                        for name, spec in engine.REGISTRY.items()}}
+
+
 def phase_analysis() -> dict:
     """``repro_torch.analysis`` on the card, each part with the counts set
     to 0 just before it and read just after: ``speccheck`` over the
@@ -3523,8 +3660,10 @@ def phase_analysis() -> dict:
     workspace give the same finite output, two counted launches a cell; a
     sentinel in each row block's entry carries changes that block's rows
     and no others); the mutation self-test on the CPU (every class caught,
-    every patched object restored, no launch), then its two card classes
-    (the carry workspace's, caught by ``carryprobe``, the launch builders
+    every patched object restored, no launch); every registry spec once
+    through ``ops.entry_point`` against its plain version
+    (``entry_point_sweep``); then the self-test's two card classes (the
+    carry workspace's, caught by ``carryprobe``, the launch builders
     restored).  Fails on any finding."""
     import torch
     from repro_torch.analysis import (carryprobe, gridcheck, mutation,
@@ -3614,6 +3753,10 @@ def phase_analysis() -> dict:
     seconds["carryprobe"] = time.perf_counter() - t
 
     t = time.perf_counter()
+    entries = entry_point_sweep()
+    seconds["entry_points"] = time.perf_counter() - t
+
+    t = time.perf_counter()
     before = mutation.card_patch_targets()
     card_results = mutation.card_self_test()
     after = mutation.card_patch_targets()
@@ -3637,15 +3780,18 @@ def phase_analysis() -> dict:
            "carryprobe": {"cells": probed.cells, "blocks": probed.blocks,
                           "launches": probe_launches},
            "card_mutation": {r.name: len(r.evidence)
-                             for r in card_results}}
+                             for r in card_results},
+           "entry_points": entries}
     emit(row)
     return row
 
 
-# The cells of phase ``profile``: (name, arch, shape, cuts, hand-kernel
-# launches a step).  P1 runs all 24 layers at the batch that fits, P2 the
-# batch of (p), P3 one group and the tail (5 layers) at B 1, P4 all 40
-# layers at the batch that leaves 10 GB of the card free.
+# The cells of phase ``profile``: (name, arch, shape, cuts and variants,
+# hand-kernel launches a step).  P1 runs all 24 layers at the batch that
+# fits, P2 the batch of (p), P3 one group and the tail (5 layers) at B 1, P4
+# all 40 layers at the batch that leaves 10 GB of the card free, P5 P2's
+# cell without remat (no recompute: one recur1 a layer forward) at the
+# batch that leaves 10 GB free, at most 8.
 PROFILE_CELLS = (
     ("P1", "mamba2-130m", "prefill_32k", {}, {"recur1": 24}),
     ("P2", "mamba2-130m", "train_4k", {"batch": 8},
@@ -3653,6 +3799,9 @@ PROFILE_CELLS = (
     ("P3", "recurrentgemma-9b", "prefill_32k", {"layers": 5, "batch": 1},
      {"recur1": 4}),
     ("P4", "granite-3-8b", "decode_32k", {}, {}),
+    ("P5", "mamba2-130m", "train_4k",
+     {"no_remat": True, "max_batch": 8, "tag": "no_remat"},
+     {"recur1": 24, "recur1_rev": 24}),
 )
 #: A share no card can give: above it the count, not the card, is wrong.
 SHARE_CAP = 1.05
@@ -3667,8 +3816,8 @@ def phase_profile(smi: str) -> list:
     P3's four on the tile route (N 32768 x M 4096).  ``mfu``,
     ``measured_roofline_fraction`` and ``busy_share``, each of the work
     that ran, must lie in (0, 1.05].  One line a cell (with the
-    reference's ``mfu_reference`` beside), then the four records through
-    ``roofline_report``."""
+    reference's ``mfu_reference`` beside; P5's line also P2's
+    ``measured_s``), then the records through ``roofline_report``."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import dryrun, roofline_report
@@ -3694,8 +3843,10 @@ def phase_profile(smi: str) -> list:
         for key in ("mfu", "measured_roofline_fraction", "busy_share"):
             check(0 < rec[key] <= SHARE_CAP,
                   f"{name}: {key} {rec[key]:.4g} outside (0, {SHARE_CAP}]")
+        done = {r["cell"]: r for r in records}
         emit({"phase": "profile", "cell": name, "arch": arch,
-              "shape": shape, "batch": rec["batch"], "seq": rec["seq"],
+              "shape": shape, "variant": rec["variant"],
+              "batch": rec["batch"], "seq": rec["seq"],
               "measured_s": rec["measured_s"], "mfu": rec["mfu"],
               "mfu_reference": rec["mfu_reference"],
               "measured_roofline_fraction":
@@ -3709,6 +3860,8 @@ def phase_profile(smi: str) -> list:
               "launches": got["traced"], "reduced": rec["reduced"],
               "fit": rec.get("fit"),
               "peak_device_bytes": rec["peak_device_bytes"],
+              **({"P2_measured_s": done["P2"]["measured_s"],
+                  "P2_batch": done["P2"]["batch"]} if name == "P5" else {}),
               "card": smi})
         rec["cell"] = name
         records.append(rec)

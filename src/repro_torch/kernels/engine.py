@@ -23,7 +23,14 @@ stored inverse diagonal as its scale, differ between variants.
     and ``csrc/batch_sweep.cu``) and leaves ``c_hat`` (or ``gamma`` and
     ``delta``) per system, which this pass reads.
   * ``SweepSpec`` / ``find_spec`` — one variant, with the byte accounting
-    (``traffic_words`` / ``traffic_bytes``) derived from its shape.
+    (``traffic_words`` / ``traffic_bytes``) derived from its shape: the
+    floor, each input read once and x written once;
+  * ``route_words`` / ``route_traffic_bytes`` — the words one launch of a
+    variant moves through device memory on each route of its kernel
+    (``ROUTES``), derived from the CUDA sources (each method's docstring),
+    given the partitioned route's row blocks; ``ops.traffic_table`` /
+    ``recurrence_traffic_table`` price every variant × route at the blocks
+    the route rule cuts.
   * ``_RECUR_TABLE`` / ``RecurrenceSpec`` / ``find_recurrence_spec`` — the
     gated linear recurrences (``h_i = p_i h_{i-1} + q_i`` and its order-2
     sibling): ONE pass whose coefficients are per-token (N, M) gate
@@ -102,8 +109,36 @@ _RECUR_TABLE = {
 }
 
 
+#: The routes of each layout's kernel, as ``ops.shared_route``,
+#: ``ops.batch_route`` and ``ops.recurrence_route`` name them.
+ROUTES = {"shared": ("onchip", "partition", "serial"),
+          "batch": ("onchip", "stream"),
+          "recurrence": ("walk", "tile")}
+
+# The name suffix of each route's traffic entry: a JAX variant's ("" its
+# resident one, "_streamed" its two-call pair) where the route moves the
+# words that variant moves, else the route's own.
+_ROUTE_SUFFIX = {("shared", "onchip"): "", ("shared", "serial"): "_streamed",
+                 ("shared", "partition"): "_partition",
+                 ("batch", "onchip"): "", ("batch", "stream"): "_streamed",
+                 ("recurrence", "walk"): "", ("recurrence", "tile"): "_tile"}
+
+
 def _itemsize(dtype) -> int:
     return dtype.itemsize
+
+
+def shard_lanes(m: int, n_shards: int) -> int:
+    """Columns of the fullest shard: M split as DTensor's ``Shard(1)``
+    gives ``ceil(M / n)`` to the first shards and what is left to the
+    last (the JAX package's ``kernels.common.shard_lanes``)."""
+    return -(-m // n_shards)
+
+
+def _check_route(layout: str, route: str) -> None:
+    if route not in ROUTES[layout]:
+        raise ValueError(f"no {route!r} route for the {layout} layout; its "
+                         f"routes are {ROUTES[layout]}")
 
 
 def compute_dtype(dtype) -> torch.dtype:
@@ -203,6 +238,89 @@ class SweepSpec:
         return (self.storage_words(n, m) * _itemsize(sdt)
                 + self.compute_words(n, m) * _itemsize(compute_dtype(sdt)))
 
+    def sharded_traffic_words(self, n: int, m: int, n_shards: int) -> int:
+        """Words one rank moves with M sharded over ``n_shards`` ranks: the
+        floor at the fullest shard's ``shard_lanes`` columns.  The solve
+        has no collective; a shared factor is replicated, so its
+        ``lhs_rows · N`` words do not shrink with the shards."""
+        return self.traffic_words(n, shard_lanes(m, n_shards))
+
+    # -- accounting: what each route of the kernel moves ----------------------
+
+    def route_name(self, route: str) -> str:
+        """The traffic entry of ``route``: the JAX variant's name where the
+        route moves what that variant moves (``thomas_constant``,
+        ``penta_uniform_streamed_t``, ``thomas_batch_streamed``…), else
+        the route's own (``thomas_constant_partition``…)."""
+        _check_route(self.layout, route)
+        base = "thomas" if self.bandwidth == 3 else "penta"
+        return (f"{base}_{self.mode}{_ROUTE_SUFFIX[self.layout, route]}"
+                + ("_t" if self.transposed else ""))
+
+    def route_words(self, n: int, m: int, route: str,
+                    blocks: int = 1) -> tuple:
+        """``(storage words, compute words)`` one solve moves through device
+        memory on ``route`` of its kernel, each array a launch reads or
+        writes counted once a launch (a factor row or the eps operand that
+        every thread reads is one read).  ``blocks`` is the partitioned
+        route's row blocks B.  From the CUDA sources:
+
+          * ``"onchip"`` (``csrc/shared_sweep.cu``'s tile,
+            ``csrc/batch_sweep.cu``'s ``batch_onchip_kernel`` and
+            ``batch_penta_kernel``): the floor, ``traffic_words``.  The
+            pentadiagonal tile reads b and c in three phases and the rhs in
+            two; it prefetches them into L2 and keeps them there by
+            eviction hints until their last reads, so device memory sees
+            each once (its source's count; no DRAM counter has read it);
+          * ``"serial"`` (shared): the rhs and the factor for the forward
+            pass, d̂ written into x, read back and overwritten by the
+            backward pass, which stages the factor again: NM + 2kN (+ eps,
+            read once at the launch's start) stored words and 3NM at the
+            compute type, what the JAX engine's streamed pair moves
+            (``*_streamed``);
+          * ``"partition"`` (shared, K0–K3 over B row blocks, order o): K0
+            reads the factor and writes the block coefficients (3Bo²) and
+            the summary weights (2oN); K1 reads the rhs and the weights and
+            writes the summaries (2BoM); K2 reads the summaries and the
+            coefficients, writes the entry carries (2BoM) and reads the
+            forward half back on its way down (BoM); K3 reads the rhs, the
+            factor and the carries and writes x.  So 2NM + 2kN (+ 2 eps)
+            stored words and NM + 4oN + 6Bo² + 9BoM at the compute type;
+          * ``"stream"`` (batch, ``batch_sweep_kernel``): the diagonals and
+            the rhs read once ((bw + 1)·NM), then c^ (or gamma and delta)
+            into the workspace and d^ (or g) into x, both read back by the
+            backward pass, and x written: (1 + 2·(1 + order))·NM at the
+            compute type; 9NM in all tridiagonal, 13NM pentadiagonal, what
+            the JAX engine's streamed pair moves (``*_batch_streamed``).
+
+        JAX's fused single-call tilings (``*_streamed_fused``) have no
+        route here: on Hopper the on-chip tiles keep the intermediate in
+        shared memory at every N they take, and past it the partitioned
+        route does."""
+        _check_route(self.layout, route)
+        floor = (self.storage_words(n, m), self.compute_words(n, m))
+        if route == "onchip":
+            return floor
+        if route == "stream":
+            return floor[0], (1 + 2 * (1 + self.n_coefs)) * n * m
+        eps = 1 if self.uniform else 0
+        if route == "serial":
+            return n * m + 2 * self.lhs_rows * n + eps, 3 * n * m
+        o = self.order
+        return (2 * (n * m + self.lhs_rows * n + eps),
+                n * m + 4 * o * n + 6 * blocks * o * o + 9 * blocks * o * m)
+
+    def route_traffic_bytes(self, n: int, m: int, route: str,
+                            dtype=torch.float32, storage_dtype=None,
+                            blocks: int = 1) -> int:
+        """``route_words`` in bytes, priced as ``traffic_bytes``: stored
+        operands at ``storage_dtype`` (default ``dtype``), the rest at the
+        compute type.  The on-chip route's equals ``traffic_bytes``."""
+        storage, compute = self.route_words(n, m, route, blocks)
+        sdt = storage_dtype or dtype
+        return (storage * _itemsize(sdt)
+                + compute * _itemsize(compute_dtype(sdt)))
+
 
 @dataclasses.dataclass(frozen=True)
 class RecurrenceSpec:
@@ -253,6 +371,32 @@ class RecurrenceSpec:
         ``dtype``: the JAX engine's accounting."""
         return (self.storage_words(n, m) * _itemsize(storage_dtype or dtype)
                 + self.compute_words(n, m) * _itemsize(dtype))
+
+    def sharded_traffic_words(self, n: int, m: int, n_shards: int) -> int:
+        """Words one rank moves with M sharded over ``n_shards`` ranks:
+        every operand is cut by column, so all of it shrinks with the
+        shards (up to the ragged last one)."""
+        return self.traffic_words(n, shard_lanes(m, n_shards))
+
+    def route_name(self, route: str) -> str:
+        """The traffic entry of ``route``: ``recur1`` (the walk, JAX's
+        resident variant's words and name) or ``recur1_tile``, with
+        ``_rev`` reversed."""
+        _check_route(self.layout, route)
+        return (f"recur{self.order}{_ROUTE_SUFFIX[self.layout, route]}"
+                + ("_rev" if self.reverse else ""))
+
+    def route_traffic_bytes(self, n: int, m: int, route: str,
+                            dtype=torch.float32, storage_dtype=None) -> int:
+        """Bytes one launch on ``route`` moves through device memory: the
+        floor, ``traffic_bytes``, on both (``csrc/recurrence_sweep.cu``).
+        The walk reads each gate and q once and writes h once; the tile
+        keeps its chunks' summaries in shared memory and its two walks over
+        a window in registers, so it moves the same (order + 2)·NM.  JAX's
+        ``*_streamed`` variants have no route of their own: they move the
+        words of its resident ones."""
+        _check_route(self.layout, route)
+        return self.traffic_bytes(n, m, dtype, storage_dtype)
 
 
 REGISTRY: dict = {

@@ -607,19 +607,83 @@ def fused_cn_penta_step(pf, sigma: float, c: torch.Tensor) -> torch.Tensor:
                           params, c.contiguous())
 
 
+# (order, factor rows, z / Z columns, correction rows, params, Minv) of each
+# step's operands
+_STEP_SHAPES = {"tridiag": (1, 3, 1, 1, 8, 0), "penta": (2, 5, 4, 4, 16, 16)}
+
+
+def route_words(kind: str, n: int, m: int, route: str,
+                blocks: int = 1) -> int:
+    """Words one step of ``kind`` moves through device memory on ``route``
+    (``csrc/fused_cn.cu``), each word a launch reads or writes counted once
+    a launch and a small operand (the parameters, Minv) counted whole;
+    ``blocks`` is the partitioned route's row blocks B.  With order o, k
+    factor rows and z (tridiag, 1 column) or Z (penta, 4):
+
+      * ``"onchip"``: the floor, the field read once and the next written
+        once, the factor, z / Z, Minv and the parameters read once
+        (``"fused"`` of the traffic dicts).  A chunk's stencil halo rows
+        are its neighbour chunk's rows, which the neighbour's warp loads
+        at the same time: L2 serves them;
+      * ``"partition"`` (K0–K3 over B row blocks): K0 reads the factor and
+        writes the block coefficients (3Bo²) and the summary weights
+        (2oN); K1 reads the field, the parameters and the weights and
+        writes the summaries (2BoM); K2 reads the summaries, the
+        coefficients, the parameters (and, penta, Minv and one factor
+        word), writes the entry carries (2BoM), reads their forward half
+        back (BoM) and writes the corrections (1 or 4 rows of M); K3 reads
+        the field again, the factor, z / Z, the parameters, the carries and
+        the corrections and writes x.  A block's halo rows are its
+        neighbours' rows, counted with them as on chip.  So 3NM + 9BoM +
+        2·corrections·M + (2k + 4o + columns of Z)·N + 6Bo² + three reads
+        of the parameters (+ Minv and one word, penta);
+      * ``"global"``: the forward pass reads c and writes d^ (g) into x,
+        the backward pass reads and writes x, the correction reads and
+        writes x again: 6NM with the factor, z / Z, Minv and the
+        parameters read once, the words of the paper's three-kernel
+        pipeline (``"unfused_pipeline"``)."""
+    o, rows, zcols, corr, params, minv = _STEP_SHAPES[kind]
+    small = params + minv
+    if route == "onchip":
+        return 2 * n * m + (rows + zcols) * n + small
+    if route == "global":
+        return 6 * n * m + (rows + zcols) * n + small
+    if route == "partition":
+        return (3 * n * m + 9 * blocks * o * m + 2 * corr * m
+                + (2 * rows + 4 * o + zcols) * n + 6 * blocks * o * o
+                + 3 * params + minv + (1 if kind == "penta" else 0))
+    raise ValueError(f"fused_cn_{kind}: route must be one of {ROUTES}, got "
+                     f"{route!r}")
+
+
+def route_traffic_bytes(kind: str, n: int, m: int, route: str,
+                        dtype=torch.float32) -> int:
+    """``route_words`` in bytes at ``dtype``, the partitioned route in the
+    row blocks ``row_blocks`` cuts at (N, dtype)."""
+    return route_words(kind, n, m, route,
+                       row_blocks(n, dtype, "partition")) * _itemsize(dtype)
+
+
+def _traffic(kind: str, n: int, m: int, dtype) -> dict:
+    return {"fused": route_traffic_bytes(kind, n, m, "onchip", dtype),
+            "unfused_pipeline": route_traffic_bytes(kind, n, m, "global",
+                                                    dtype),
+            "partition": route_traffic_bytes(kind, n, m, "partition",
+                                             dtype)}
+
+
 def tridiag_traffic_bytes(n: int, m: int, dtype=torch.float32) -> dict:
-    """Bytes of one CN diffusion step, fused (the field read once, the next
-    written once, the factor and the parameters read once) against the
-    paper's three-kernel pipeline: ``repro.kernels.fused_cn``'s
-    ``hbm_traffic_bytes``."""
-    itemsize = dtype.itemsize
-    return {"fused": (2 * n * m + 4 * n + 8) * itemsize,
-            "unfused_pipeline": (6 * n * m + 4 * n + 8) * itemsize}
+    """Bytes of one CN diffusion step: ``"fused"`` (the on-chip route, the
+    floor: the field read once, the next written once, the factor and the
+    parameters read once) and the paper's three-kernel pipeline
+    (``"unfused_pipeline"``), ``repro.kernels.fused_cn``'s
+    ``hbm_traffic_bytes``, which the global route moves; beside them what
+    the partitioned route moves (``"partition"``, ``route_words``)."""
+    return _traffic("tridiag", n, m, dtype)
 
 
 def penta_traffic_bytes(n: int, m: int, dtype=torch.float32) -> dict:
-    """The same for one CN hyperdiffusion step:
-    ``repro.kernels.fused_cn_penta``'s ``hbm_traffic_bytes``."""
-    itemsize = dtype.itemsize
-    return {"fused": (2 * n * m + 9 * n + 32) * itemsize,
-            "unfused_pipeline": (6 * n * m + 9 * n + 32) * itemsize}
+    """The same for one CN hyperdiffusion step (``"fused"`` and
+    ``"unfused_pipeline"``: ``repro.kernels.fused_cn_penta``'s
+    ``hbm_traffic_bytes``)."""
+    return _traffic("penta", n, m, dtype)

@@ -59,16 +59,32 @@ The gated recurrences (``h_i = p_i h_{i-1} + q_i`` and order 2):
     order; ``recurrence_cuda`` takes a forced ``route=`` and ``chunks=``,
     to time them.
 
+The registry and the traffic model:
+
+  * ``ENTRY_POINTS`` / ``entry_key`` / ``entry_point``: the callable each
+    registered spec dispatches through, as in the JAX package;
+  * ``solver_hbm_traffic_bytes`` / ``recurrence_hbm_traffic_bytes`` /
+    ``sharded_solver_hbm_traffic_bytes``: the bytes one solve moves
+    through device memory on a route of its kernel (by default the one the
+    route rule takes), ``engine.SweepSpec.route_words``;
+    ``traffic_table`` / ``recurrence_traffic_table``: every variant ×
+    route, keyed as the JAX engine's ``traffic_table`` keys its variants
+    where a route moves what a JAX variant moves;
+  * ``sharded_solve``: a ``(factor, rhs) -> x`` solver run on each rank's
+    columns of a DTensor rhs, the factor replicated, no collective.
+
 ``LAUNCHES`` counts the kernels' launches by spec name, and
 ``LAUNCH_BYTES`` the least bytes those launches must move (each input read
-once, each output written once); both are bumped where a kernel launches
-and nowhere else.  ``BATCH_ROUTE_LAUNCHES`` counts the batch sweep's
-launches again by ``"<spec name>/<route>"``, to tell its kernels apart.  The ``*_cuda`` wrappers take an internal ``out=``, a
-buffer the kernel writes x into, so that a check can fill it first
-(``repro_torch.analysis.nansweep`` fills it with NaN to show every element
-written); the partitioned routes also take ``work=``, their workspace of
-``partition_work_elems`` elements (``repro_torch.analysis.carryprobe``
-fills it with NaN, zeros and a sentinel in the entry carries).
+once, each output written once: the floor, not the route's words); both
+are bumped where a kernel launches and nowhere else.
+``BATCH_ROUTE_LAUNCHES`` counts the batch sweep's launches again by
+``"<spec name>/<route>"``, to tell its kernels apart.  The ``*_cuda``
+wrappers take an internal ``out=``, a buffer the kernel writes x into,
+so that a check can fill it first (``repro_torch.analysis.nansweep``
+fills it with NaN to show every element written); the partitioned routes
+also take ``work=``, their workspace of ``partition_work_elems`` elements
+(``repro_torch.analysis.carryprobe`` fills it with NaN, zeros and a
+sentinel in the entry carries).
 """
 
 from __future__ import annotations
@@ -79,9 +95,11 @@ import dataclasses
 import torch
 
 from ..core.recurrence import _shift_down, _shift_up
+from ..sharding import ranked_mesh, shard_rhs, sharded_columns
 from . import build
-from .engine import (EPS_PARAM, RecurrenceSpec, SweepSpec, compute_dtype,
-                     find_recurrence_spec, find_spec)
+from .engine import (EPS_PARAM, REGISTRY, ROUTES, RecurrenceSpec, SweepSpec,
+                     compute_dtype, find_recurrence_spec, find_spec,
+                     shard_lanes)
 
 _C_INT, _C_PTR, _C_I64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
 # The C entry point of each kernel library, by name.
@@ -128,11 +146,11 @@ MAX_CHUNKS = 16
 SMEM_PER_BLOCK = 232_448
 #: Bytes of column in one row block of the shared sweep's partitioned route.
 ROW_BLOCK_BYTES = 2048
-SHARED_ROUTES = ("onchip", "partition", "serial")
+SHARED_ROUTES = ROUTES["shared"]
 #: The batch sweep's routes (``csrc/batch_sweep.cu``): on chip (at most
 #: ``batch_onchip_chunks`` row chunks of ``batch_onchip_rows`` rows a block
 #: of TILE_M systems) and stream (one thread a system).
-BATCH_ROUTES = ("onchip", "stream")
+BATCH_ROUTES = ROUTES["batch"]
 #: Rows a chunk of the tridiagonal on-chip route holds at most.
 BATCH_ROWS = 16
 #: The pentadiagonal on-chip route (``batch_penta_kernel``): rows a chunk at
@@ -151,7 +169,7 @@ RECURRENCE_DTYPES = {**_DTYPE_CODES, torch.float16: 3}
 #: The recurrence kernel's routes (``csrc/recurrence_sweep.cu``): walk (one
 #: thread a column) and tile (TILE_M columns a block, in row chunks of
 #: RECURRENCE_ROWS rows joined by carry folds).
-RECURRENCE_ROUTES = ("walk", "tile")
+RECURRENCE_ROUTES = ROUTES["recurrence"]
 _RECURRENCE_ROUTE_CODES = {"walk": 0, "tile": 1}
 #: Rows a chunk of the tile route (compile-time in the kernel), and the
 #: chunks (warps) a block holds at most.
@@ -1670,3 +1688,164 @@ def penta_batch(a, b, c, d, e, rhs, *, storage_dtype=None) -> torch.Tensor:
     always on the stream route."""
     *diags, rhs = _as_stored((a, b, c, d, e, rhs), storage_dtype)
     return batch_sweep(find_spec(5, "batch"), diags, rhs)
+
+
+# ---------------------------------------------------------------------------
+# The entry-point registry and the traffic model of one solve
+# ---------------------------------------------------------------------------
+
+#: The callable each (bandwidth, layout) or (order, "recurrence") dispatches
+#: through: every ``engine.REGISTRY`` spec resolves to one of these, so a
+#: check can drive a spec with no hand-kept case list.
+ENTRY_POINTS = {
+    (3, "shared"): thomas_constant,
+    (3, "batch"): thomas_batch,
+    (5, "shared"): penta_constant,
+    (5, "batch"): penta_batch,
+    (1, "recurrence"): recurrence,
+    (2, "recurrence"): recurrence,
+}
+
+
+def entry_key(spec) -> tuple:
+    """The ``ENTRY_POINTS`` key of a registered spec: (bandwidth, layout)
+    for a sweep, (order, "recurrence") for a recurrence."""
+    if isinstance(spec, RecurrenceSpec):
+        return (spec.order, spec.layout)
+    return (spec.bandwidth, spec.layout)
+
+
+def entry_point(spec):
+    """The callable that dispatches ``spec``: shared specs take a factor
+    and the ``transposed`` (and, pentadiagonal, ``uniform``) flags, batch
+    specs the raw diagonals, recurrence specs the gates and ``reverse``."""
+    return ENTRY_POINTS[entry_key(spec)]
+
+
+def _refuse_tpu_tilings(name: str, tilings: dict) -> None:
+    """Raise ``TypeError`` on JAX's ``streamed=`` / ``fused=``, which pick a
+    TPU tiling; the kernels here have routes."""
+    for key, value in tilings.items():
+        if value is not None:
+            raise TypeError(
+                f"{name}: {key}= picks a TPU tiling of the JAX kernels; the "
+                f"port's kernels have routes: pass route= (one of "
+                f"{SHARED_ROUTES} shared, {BATCH_ROUTES} batch, "
+                f"{RECURRENCE_ROUTES} recurrence)")
+
+
+def solver_hbm_traffic_bytes(bandwidth: int, mode: str, n: int, m: int, *,
+                             dtype=torch.float32, transposed: bool = False,
+                             storage_dtype=None, route: str | None = None,
+                             streamed=None, fused=None) -> int:
+    """Bytes one solve of an (n, m) rhs moves through device memory on
+    ``route`` of its kernel (``engine.SweepSpec.route_words``): by default
+    the route the dispatcher takes, ``shared_route`` (constant, uniform) or
+    ``batch_route`` (batch) at (n, ``storage_dtype or dtype``).
+    ``storage_dtype`` prices the stored operands at its size and the rest
+    at the compute type, as the JAX package does.  A transposed batch solve
+    runs the forward batch sweep on rolled diagonals, so it prices as the
+    forward one.  JAX's ``streamed=`` and ``fused=`` raise ``TypeError``;
+    an unknown bandwidth, mode or route raises ``ValueError``."""
+    _refuse_tpu_tilings("solver_hbm_traffic_bytes",
+                        {"streamed": streamed, "fused": fused})
+    if mode == "batch":
+        transposed = False
+    spec = find_spec(bandwidth, mode, transposed=transposed)
+    sdt = canonical_storage_dtype(storage_dtype)
+    at = sdt or dtype
+    if route is None:
+        route = (batch_route(n, at, bandwidth) if mode == "batch"
+                 else shared_route(n, at)).name
+    blocks = (shared_route(n, at, "partition").row_blocks
+              if route == "partition" and mode != "batch" else 1)
+    return spec.route_traffic_bytes(n, m, route, dtype, sdt, blocks)
+
+
+def recurrence_hbm_traffic_bytes(order: int, n: int, m: int, *,
+                                 dtype=torch.float32, reverse: bool = False,
+                                 route: str | None = None,
+                                 streamed=None) -> int:
+    """Bytes one gated recurrence over an (n, m) batch moves through device
+    memory on ``route`` (by default ``recurrence_route``'s at (n, m,
+    dtype)); both routes move the floor.  JAX's ``streamed=`` raises
+    ``TypeError``."""
+    _refuse_tpu_tilings("recurrence_hbm_traffic_bytes",
+                        {"streamed": streamed})
+    spec = find_recurrence_spec(order, reverse=reverse)
+    if route is None:
+        route = recurrence_route(n, m, dtype, order).name
+    return spec.route_traffic_bytes(n, m, route, dtype)
+
+
+def traffic_table(bandwidth: int, n: int, m: int, dtype=torch.float32,
+                  storage_dtype=None) -> dict:
+    """``{key: bytes}`` of every registered sweep variant of ``bandwidth`` on
+    every route of its kernel (``SweepSpec.route_traffic_bytes``), the key
+    its ``route_name`` without the ``thomas_`` / ``penta_`` prefix, as the
+    JAX engine's ``traffic_table`` keys its variants: ``constant``,
+    ``constant_t``, ``uniform``… (on chip), ``constant_streamed``… (the
+    serial kernel, the words of JAX's streamed pair), ``batch``,
+    ``batch_streamed`` (the stream kernel, the same), and the partitioned
+    route's own ``constant_partition``…  Every route is priced at every N,
+    also past the N it takes; the partitioned route in the row blocks
+    ``shared_route`` cuts at (N, ``storage_dtype or dtype``).  JAX's
+    ``*_streamed_fused`` keys have no route here (``SweepSpec.route_words``).
+    Recurrence variants key their own table: ``recurrence_traffic_table``."""
+    prefix = "thomas_" if bandwidth == 3 else "penta_"
+    blocks = shared_route(n, storage_dtype or dtype, "partition").row_blocks
+    return {spec.route_name(route)[len(prefix):]:
+            spec.route_traffic_bytes(n, m, route, dtype, storage_dtype,
+                                     blocks)
+            for spec in REGISTRY.values()
+            if isinstance(spec, SweepSpec) and spec.bandwidth == bandwidth
+            for route in ROUTES[spec.layout]}
+
+
+def recurrence_traffic_table(n: int, m: int, dtype=torch.float32) -> dict:
+    """``{route_name: bytes}`` of every registered recurrence variant on
+    both routes (``recur1``, ``recur1_tile``, ``recur1_rev``…).  JAX's
+    ``*_streamed`` keys have no route here: they move what ``recur1``
+    moves."""
+    return {spec.route_name(route): spec.route_traffic_bytes(n, m, route,
+                                                             dtype)
+            for spec in REGISTRY.values()
+            if isinstance(spec, RecurrenceSpec)
+            for route in ROUTES[spec.layout]}
+
+
+def sharded_solver_hbm_traffic_bytes(bandwidth: int, mode: str, n: int,
+                                     m: int, n_shards: int, *,
+                                     dtype=torch.float32,
+                                     transposed: bool = False,
+                                     storage_dtype=None,
+                                     route: str | None = None,
+                                     streamed=None, fused=None) -> int:
+    """Bytes ONE rank moves when the ``sharded`` backend solves its columns
+    of M over ``n_shards`` ranks: the solve has no collective, so this is
+    ``solver_hbm_traffic_bytes`` at the fullest shard's
+    ``engine.shard_lanes(m, n_shards)`` columns (a shared factor is read
+    whole on every rank)."""
+    return solver_hbm_traffic_bytes(
+        bandwidth, mode, n, shard_lanes(m, n_shards), dtype=dtype,
+        transposed=transposed, storage_dtype=storage_dtype, route=route,
+        streamed=streamed, fused=fused)
+
+
+def sharded_solve(solve_fn, mesh, batch_axes):
+    """Wrap a ``(factor, rhs (N, M)) -> x`` solver so that M is sharded over
+    ``batch_axes`` of ``mesh`` (a ``repro_torch.sharding.Mesh`` with ranks
+    behind it, or a named ``DeviceMesh``) and the factor is replicated: one
+    copy a rank, the paper's storage saving per rank.  The rhs (a DTensor,
+    or a plain tensor taken as the same on every rank) is laid out
+    ``Shard(1)`` over the batch axes, each rank solves its own columns with
+    ``solve_fn``, and x comes back a DTensor ``Shard(1)``: no collective,
+    systems are independent.  Needs an initialised process group."""
+    mesh = ranked_mesh(mesh)
+
+    def wrapped(factor, rhs):
+        placed = shard_rhs(rhs, mesh, batch_axes)
+        x = solve_fn(factor, placed.to_local().contiguous())
+        return sharded_columns(x, mesh, batch_axes, placed.shape[1])
+
+    return wrapped

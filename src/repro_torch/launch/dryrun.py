@@ -49,9 +49,24 @@ XLA's analyses; the port has no compiler to ask, so it has two legs:
     ``roofline_raw_hlo``.  Its record is ``*__card_measured.json``, beside
     the static ``*__card.json``.
 
+The reference's variants are the same arguments of ``run_cell`` and
+``measure_cell`` and the same flags: ``accum`` (``--accum``, the training
+step's microbatches, ``train.make_train_step``), ``moe_local``
+(``--moe-local [local2]``, ``cfg.moe_dispatch`` set to ``"local"`` or
+``"local2"``, the moe layer's per-shard dispatch) and ``no_remat``
+(``--no-remat``, ``cfg.remat`` off: no recompute in the backward, and the
+analytic cost without its re-forward).  Each record carries the
+reference's ``variant`` dict.  Its ``--rules`` and ``--grad-constrain``
+(GSPMD sharding-rule overrides and gradient layout constraints) and
+``--timeout`` (of one cell's XLA compile) have no counterpart: the port
+compiles nothing, and its one-card step has no layout to constrain; the
+``variant`` dict keeps their keys at the values that mean "not used".
+
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-8b \\
         --shape decode_32k --measure
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mamba2-130m \\
+        --shape train_4k --measure --no-remat
 """
 
 from __future__ import annotations
@@ -248,14 +263,47 @@ def ran_record(cfg, kind: str, batch: int, seq: int, bytes_per_device: float,
                                            card=card, dtype=cfg.dtype)}
 
 
+def variant_config(cfg, *, moe_local=False, no_remat: bool = False):
+    """``cfg`` with the reference's variants applied: ``moe_local``
+    (``True`` or ``"local"``, or ``"local2"``) as ``moe_dispatch``,
+    ``no_remat`` as ``remat=False``."""
+    if moe_local:
+        mode = moe_local if isinstance(moe_local, str) else "local"
+        if mode not in ("local", "local2"):
+            raise ValueError(f"moe_local must be 'local' or 'local2', got "
+                             f"{moe_local!r}")
+        cfg = dataclasses.replace(cfg, moe_dispatch=mode)
+    if no_remat:
+        cfg = dataclasses.replace(cfg, remat=False)
+    return cfg
+
+
+def variant_record(moe_local=False, no_remat: bool = False) -> dict:
+    """The reference's ``variant`` dict: its GSPMD knobs
+    (``grad_constrain``, ``rules``) at their unused values."""
+    return {"moe_local": moe_local, "grad_constrain": False,
+            "no_remat": no_remat, "rules": {}}
+
+
+def _check_accum(accum: int) -> int:
+    if int(accum) != accum or accum < 1:
+        raise ValueError(f"accum must be a positive integer, got {accum!r}")
+    return int(accum)
+
+
 def run_cell(arch: str, shape_name: str, *, mesh: str = "16x16",
-             tag: str = "", card: str = DEFAULT_CARD) -> dict:
-    """The static record of one cell (no allocation)."""
-    cfg = get_config(arch)
+             tag: str = "", card: str = DEFAULT_CARD, accum: int = 1,
+             moe_local=False, no_remat: bool = False) -> dict:
+    """The static record of one cell (no allocation), with the variants
+    applied (module docstring); ``accum`` changes no static term (the
+    reference's analytic cost ignores it too) and is recorded."""
+    cfg = variant_config(get_config(arch), moe_local=moe_local,
+                         no_remat=no_remat)
     seq, batch, kind = SHAPES[shape_name]
     rec = {"arch": cfg.name, "shape": shape_name, "mesh": mesh,
            "kind": kind, "seq": seq, "batch": batch, "tag": tag,
-           "card": card}
+           "card": card, "accum": _check_accum(accum),
+           "variant": variant_record(moe_local, no_remat)}
     ok, reason = shape_applicable(cfg, shape_name)
     if not ok:
         rec.update(status="skip", reason=reason)
@@ -293,10 +341,12 @@ def _frontend(cfg, batch: int, device) -> dict:
     return {}
 
 
-def make_step(model, kind: str, seq: int, *, seed: int = 0):
+def make_step(model, kind: str, seq: int, *, seed: int = 0,
+              accum: int = 1):
     """``prepare(batch) -> run()``: ``prepare`` builds the cell's inputs
     (and, for training, the optimizer state) at ``batch``; each ``run()``
-    is one step through the port's entry point for ``kind``."""
+    is one step through the port's entry point for ``kind`` (a training
+    step in ``accum`` microbatches)."""
     from repro_torch.data import SyntheticLM
     from repro_torch.launch.train import make_optimizer
     from repro_torch.train import (make_decode_step, make_prefill_step,
@@ -321,7 +371,7 @@ def make_step(model, kind: str, seq: int, *, seed: int = 0):
             data.pop("labels")
             return lambda: fn(params, data)
         opt = make_optimizer(cfg, lr=3e-4, warmup=20, steps=100)
-        fn = make_train_step(model, sctx, opt)
+        fn = make_train_step(model, sctx, opt, accum=accum)
         state = {"params": params, "opt": opt.init(params), "step": 0}
 
         def train_step():
@@ -334,33 +384,41 @@ def make_step(model, kind: str, seq: int, *, seed: int = 0):
     return prepare
 
 
-def fit_batch(prepare, cell_batch: int) -> tuple:
-    """``(batch, probe)``: the largest batch up to ``cell_batch`` whose
-    step leaves ``FREE_BYTES`` of the card free, from one step at batch 1:
-    its peak above what was allocated before it, taken as the device bytes
-    a sequence adds; ``probe`` holds the numbers the rule read."""
+def fit_batch(prepare, cell_batch: int, multiple: int = 1) -> tuple:
+    """``(batch, probe)``: the largest multiple of ``multiple`` (the
+    training step's microbatches) up to ``cell_batch`` whose step leaves
+    ``FREE_BYTES`` of the card free, from one step at batch ``multiple``:
+    its peak above what was allocated before it, over ``multiple``, taken
+    as the device bytes a sequence adds; ``probe`` holds the numbers the
+    rule read."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    run = prepare(1)
+    run = prepare(multiple)
     run()
     torch.cuda.synchronize()
-    per_seq = torch.cuda.max_memory_allocated() - base
+    per_seq = (torch.cuda.max_memory_allocated() - base) / multiple
     del run
     torch.cuda.empty_cache()
     free = torch.cuda.mem_get_info()[0]
-    batch = max(1, min(cell_batch, int((free - FREE_BYTES) // per_seq)))
+    fits = min(cell_batch, int((free - FREE_BYTES) // per_seq))
+    batch = max(multiple, fits // multiple * multiple)
     return batch, {"per_sequence_bytes": per_seq, "free_bytes": free,
                    "left_free_bytes": FREE_BYTES}
 
 
 def measure_cell(arch: str, shape_name: str, *, layers: int | None = None,
                  batch: int | None = None, seed: int = 0,
-                 tag: str = "") -> dict:
+                 tag: str = "", accum: int = 1, moe_local=False,
+                 no_remat: bool = False,
+                 max_batch: int | None = None) -> dict:
     """The measured record of one cell on the CUDA card (module docstring);
     ``layers`` and ``batch`` cut depth and batch (``batch`` None: the
-    largest ``fit_batch`` allows).  Raises without CUDA."""
+    largest ``fit_batch`` allows, a multiple of ``accum``, at most
+    ``max_batch`` when given); ``accum``,
+    ``moe_local`` and ``no_remat`` are the reference's variants.  Raises
+    without CUDA."""
     if not torch.cuda.is_available():
         raise RuntimeError("the measured leg runs on a CUDA card; "
                            "torch.cuda.is_available() is False")
@@ -369,12 +427,18 @@ def measure_cell(arch: str, shape_name: str, *, layers: int | None = None,
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
 
-    full = get_config(arch)
+    full = variant_config(get_config(arch), moe_local=moe_local,
+                          no_remat=no_remat)
+    accum = _check_accum(accum)
     seq, cell_batch, kind = SHAPES[shape_name]
     card = torch.cuda.get_device_name(0)
     rec = {"arch": full.name, "shape": shape_name, "mesh": "1",
            "kind": kind, "seq": seq, "cell_batch": cell_batch, "tag": tag,
-           "card": card}
+           "card": card, "accum": accum,
+           "variant": variant_record(moe_local, no_remat)}
+    if accum > 1 and kind != "train":
+        raise ValueError(f"accum={accum} splits a training step; "
+                         f"{shape_name} is a {kind} cell")
     ok, reason = shape_applicable(full, shape_name)
     if not ok:
         rec.update(status="skip", reason=reason)
@@ -387,9 +451,10 @@ def measure_cell(arch: str, shape_name: str, *, layers: int | None = None,
         cfg = dataclasses.replace(full, n_layers=layers)
         reduced.append(f"n_layers {full.n_layers} -> {layers}")
     model = build_model(cfg, device="cuda", seed=seed)
-    prepare = make_step(model, kind, seq, seed=seed)
+    prepare = make_step(model, kind, seq, seed=seed, accum=accum)
     if batch is None:
-        batch, rec["fit"] = fit_batch(prepare, cell_batch)
+        batch, rec["fit"] = fit_batch(
+            prepare, min(cell_batch, max_batch or cell_batch), accum)
         rule = f"leaves {FREE_BYTES / 1e9:g} GB of the card free"
     else:
         rule = "as asked"
@@ -494,10 +559,18 @@ def main(argv=None) -> int:
                     help="measured: cut the batch (default: fit_batch)")
     ap.add_argument("--out", default="artifacts/dryrun")
     ap.add_argument("--tag", default="")
+    ap.add_argument("--accum", type=int, default=1,
+                    help="a training step's microbatches")
+    ap.add_argument("--moe-local", nargs="?", const="local", default=False,
+                    help="MoE dispatch mode: (no value)=local, or local2")
+    ap.add_argument("--no-remat", action="store_true",
+                    help="no recompute in the backward (cfg.remat off)")
     ap.add_argument("--force", action="store_true",
                     help="recompute cached cells")
     args = ap.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
+    variants = {"accum": args.accum, "moe_local": args.moe_local,
+                "no_remat": args.no_remat}
 
     if args.all:
         for arch in ARCH_IDS:
@@ -508,7 +581,8 @@ def main(argv=None) -> int:
                     if os.path.exists(path) and not args.force:
                         print(f"[cached] {name}")
                         continue
-                    rec = run_cell(arch, shape, mesh=mesh, tag=args.tag)
+                    rec = run_cell(arch, shape, mesh=mesh, tag=args.tag,
+                                   **variants)
                     with open(path, "w") as f:
                         json.dump(rec, f, indent=1)
                     print(f"[{rec['status']}] {name}")
@@ -522,9 +596,10 @@ def main(argv=None) -> int:
     try:
         if args.measure:
             rec = measure_cell(args.arch, args.shape, layers=args.layers,
-                               batch=args.batch, tag=args.tag)
+                               batch=args.batch, tag=args.tag, **variants)
         else:
-            rec = run_cell(args.arch, args.shape, mesh=mesh, tag=args.tag)
+            rec = run_cell(args.arch, args.shape, mesh=mesh, tag=args.tag,
+                           **variants)
     except Exception:
         rec = {"arch": args.arch, "shape": args.shape, "mesh": mesh,
                "status": "error", "error": traceback.format_exc()[-6000:]}

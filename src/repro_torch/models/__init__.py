@@ -6,7 +6,7 @@ cross), ``transformer``, ``moe``, ``ssm`` and ``rglru``."""
 
 from .config import ArchConfig, reduced
 from .model import Model, build_model
-from .params import ParamSpec, init_params, tree_size
+from .params import ParamSpec, abstract_params, init_params, tree_size
 
-__all__ = ["ArchConfig", "Model", "ParamSpec", "build_model", "init_params",
-           "reduced", "tree_size"]
+__all__ = ["ArchConfig", "Model", "ParamSpec", "abstract_params",
+           "build_model", "init_params", "reduced", "tree_size"]

@@ -48,7 +48,8 @@ from .config import ArchConfig
 from .layers import (_acc, _dt, attention_apply, attention_prefill_kv,
                      attention_specs, cache_write, decode_attention,
                      mlp_apply, mlp_apply_1tok, mlp_specs, rmsnorm, rope)
-from .params import ParamSpec, check_tree, init_params, tree_leaves, tree_map
+from .params import (ParamSpec, abstract_params, check_tree, init_params,
+                     tree_leaves, tree_map)
 from .rglru import rglru_apply, rglru_decode_step, rglru_specs
 from .ssm import ssm_apply, ssm_decode_step, ssm_specs
 from .transformer import block_apply, block_decode, block_prefill_kv, block_specs
@@ -781,6 +782,13 @@ class Model(nn.Module):
     def param_specs(self) -> dict:
         return param_specs(self.cfg)
 
+    def abstract_params(self) -> dict:
+        """``params.abstract_params`` of the config's specs: ``meta``
+        tensors of each leaf's shape and dtype.  JAX's ``Model.init(rng)``
+        has no counterpart: this module draws its weights when it is built,
+        from ``seed``."""
+        return abstract_params(self.param_specs())
+
     def cache_specs(self, batch: int, seq: int) -> dict:
         return cache_specs(self.cfg, batch, seq)
 
@@ -808,4 +816,6 @@ class Model(nn.Module):
 
 
 def build_model(cfg: ArchConfig, *, device=None, seed: int = 0) -> Model:
+    """``Model(cfg)`` on ``device`` (the CUDA device by default), its
+    weights drawn from ``seed``."""
     return Model(cfg, device=device, seed=seed)

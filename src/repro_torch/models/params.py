@@ -1,10 +1,12 @@
 """Parameter specification trees: one definition -> init / cache / checks.
 
 Counterpart of ``repro.models.params``.  Model builders return nested
-dicts of ``ParamSpec``; ``init_params`` materialises them on an explicit
-device from an explicit ``torch.Generator``, by JAX's rule: zeros, ones,
-or ``scale · N(0, 1)`` drawn in fp32 with ``scale = 1 / sqrt(fan_in)``,
-fan-in ``shape[-2]``, unless the spec gives one.  The draws cannot match
+dicts of ``ParamSpec``; ``abstract_params`` gives their shapes and dtypes
+as ``meta`` tensors (no allocation); ``init_params`` materialises them on
+an explicit device from an explicit ``torch.Generator``, by JAX's rule:
+zeros, ones, or ``scale · N(0, 1)`` drawn in fp32 with ``scale = 1 /
+sqrt(fan_in)``, fan-in ``shape[-2]``, unless the spec gives one.  The
+draws cannot match
 JAX's random stream; ``repro_torch.convert`` carries JAX-made parameters
 over where the two packages must compute with the same weights.
 """
@@ -83,7 +85,17 @@ def check_tree(spec_tree, tree, path: str = "") -> None:
 
 
 def tree_size(spec_tree) -> int:
+    """The number of parameters ``spec_tree`` describes."""
     return sum(math.prod(s.shape) for s in tree_leaves(spec_tree))
+
+
+def abstract_params(spec_tree) -> dict:
+    """``spec_tree`` with a ``meta``-device tensor of each spec's shape and
+    dtype at every leaf: the shapes of the parameters with nothing
+    allocated (the counterpart of JAX's ``ShapeDtypeStruct`` stand-ins, on
+    which the dry-run never materialises the 1T-parameter configs)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), spec_tree)
 
 
 def init_params(spec_tree, generator: torch.Generator, *, device) -> dict:

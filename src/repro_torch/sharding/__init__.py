@@ -12,8 +12,10 @@ from .logical import (
     ranked_mesh,
     replicated,
     resolve_spec,
+    shard_rhs,
+    sharded_columns,
 )
 
 __all__ = ["DEFAULT_RULES", "LogicalRules", "Mesh", "NamedSharding",
            "ShardingCtx", "place", "place_tree", "ranked_mesh",
-           "replicated", "resolve_spec"]
+           "replicated", "resolve_spec", "shard_rhs", "sharded_columns"]

@@ -27,6 +27,7 @@ import dataclasses
 import math
 from typing import Any, Mapping, Sequence
 
+import torch
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
@@ -167,6 +168,43 @@ def place(x, sharding: NamedSharding):
     if isinstance(x, DTensor):
         return x.redistribute(dm, sharding.placements)
     return distribute_tensor(x, dm, sharding.placements, src_data_rank=None)
+
+
+def _column_placements(mesh: Mesh, batch_axis) -> tuple:
+    """``Shard(1)`` on the batch axes, ``Replicate()`` elsewhere."""
+    return mesh.placements((None, batch_axis))
+
+
+def sharded_columns(local: torch.Tensor, mesh: Mesh, batch_axis,
+                    m: int) -> DTensor:
+    """This rank's columns ``local`` (N, cols) of an (N, M) tensor as the
+    DTensor ``Shard(1)`` over the batch axes they belong to."""
+    n = local.shape[0]
+    return DTensor.from_local(local, mesh.device_mesh,
+                              _column_placements(mesh, batch_axis),
+                              run_check=False, shape=torch.Size((n, m)),
+                              stride=(m, 1))
+
+
+def shard_rhs(rhs, mesh: Mesh, batch_axis, device=None) -> DTensor:
+    """``rhs`` (N, M) as a DTensor ``Shard(1)`` over the batch axes of
+    ``mesh``: a DTensor is redistributed (free from ``Shard(1)`` or
+    ``Replicate()``), a plain tensor (moved to ``device`` when given) is
+    taken as replicated and cut without communication.  Differentiable, so
+    the gradient comes back in the caller's layout."""
+    if rhs.ndim != 2:
+        raise ValueError(
+            f"the sharded backend shards the M axis of an (N, M) rhs, or "
+            f"solves an (N,) rhs as one column; got {tuple(rhs.shape)}")
+    dm = mesh.device_mesh
+    if not isinstance(rhs, DTensor):
+        rhs = DTensor.from_local(rhs if device is None else rhs.to(device),
+                                 dm, (Replicate(),) * dm.ndim,
+                                 run_check=False)
+    elif rhs.device_mesh != dm:
+        raise ValueError("rhs lies on another device mesh than the "
+                         "factorization's")
+    return rhs.redistribute(dm, _column_placements(mesh, batch_axis))
 
 
 def place_tree(tree, shardings):

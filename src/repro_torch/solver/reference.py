@@ -204,6 +204,15 @@ class ReferenceBackend:
         self.fact = factorize(system, backend="reference", **opts)
         self.stored = self.fact.stored
 
+    def factor_for_solve(self):
+        """The stored factor as the sweeps read it: a uniform-mode factor's
+        scalar diagonal broadcast back to a vector (``expand_uniform``), any
+        other mode's as stored."""
+        if self.system.mode == "uniform":
+            return expand_uniform(self.system.bandwidth, self.system.periodic,
+                                  self.system.n, self.stored)
+        return self.stored
+
     def solve(self, rhs: torch.Tensor) -> torch.Tensor:
         from .autodiff import solve as _solve
         return _solve(self.fact, rhs)

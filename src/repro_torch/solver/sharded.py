@@ -45,10 +45,11 @@ import os
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor
 
 from ..kernels import ops as _kops
-from ..sharding import Mesh, ranked_mesh
+from ..kernels.engine import shard_lanes
+from ..sharding import Mesh, ranked_mesh, shard_rhs, sharded_columns
 from . import cuda as _cuda
 from . import reference as _ref
 from .autodiff import diagonal_cotangents
@@ -101,12 +102,6 @@ def resolve_mesh(mesh, batch_axis, device_type: str = "cuda"):
     return mesh, batch_axis, n_shards
 
 
-def shard_lanes(m: int, n_shards: int) -> int:
-    """Columns of the fullest shard: M split as ``Shard(1)`` gives
-    ``ceil(M / n)`` to the first shards and what is left to the last."""
-    return -(-m // n_shards)
-
-
 def lane_range(m: int, mesh: Mesh, batch_axis) -> tuple:
     """This rank's columns ``[lo, hi)`` of M, as DTensor's ``Shard(1)``
     over the batch axes cuts them: ``ceil(len / size)`` a shard over each
@@ -142,37 +137,10 @@ def local_system(system: BandedSystem, device: torch.device,
     return local
 
 
-def _placements(mesh: Mesh, batch_axis) -> tuple:
-    """``Shard(1)`` on the batch axes, ``Replicate()`` elsewhere."""
-    return mesh.placements((None, batch_axis))
-
-
-def _sharded(local: torch.Tensor, mesh: Mesh, batch_axis,
-             m: int) -> DTensor:
-    n = local.shape[0]
-    return DTensor.from_local(local, mesh.device_mesh,
-                              _placements(mesh, batch_axis), run_check=False,
-                              shape=torch.Size((n, m)), stride=(m, 1))
-
-
 def place_rhs(meta, rhs):
-    """``rhs`` (N, M) as a DTensor ``Shard(1)`` over the batch axes: a
-    DTensor is redistributed (free from ``Shard(1)`` or ``Replicate()``),
-    a plain tensor is taken as replicated and cut without communication.
-    Differentiable, so the gradient comes back in the caller's layout."""
-    if rhs.ndim != 2:
-        raise ValueError(
-            f"the sharded backend shards the M axis of an (N, M) rhs, or "
-            f"solves an (N,) rhs as one column; got {tuple(rhs.shape)}")
-    mesh, batch_axis = meta.opt("mesh"), meta.opt("batch_axis")
-    dm = mesh.device_mesh
-    if not isinstance(rhs, DTensor):
-        rhs = DTensor.from_local(rhs.to(meta.opt("device")), dm,
-                                 (Replicate(),) * dm.ndim, run_check=False)
-    elif rhs.device_mesh != dm:
-        raise ValueError("rhs lies on another device mesh than the "
-                         "factorization's")
-    return rhs.redistribute(dm, _placements(mesh, batch_axis))
+    """``shard_rhs`` on the factorization's mesh, batch axes and device."""
+    return shard_rhs(rhs, meta.opt("mesh"), meta.opt("batch_axis"),
+                     meta.opt("device"))
 
 
 def _dispatch(meta, stored, rhs, *, transposed: bool) -> DTensor:
@@ -204,8 +172,8 @@ def _dispatch(meta, stored, rhs, *, transposed: bool) -> DTensor:
         fn = _ref.transpose_solve_stored if transposed else _ref.solve_stored
         x = fn(meta.bandwidth, meta.mode, meta.periodic, meta.n, stored,
                local, method=meta.opt("method", "scan"))
-    return _sharded(x, meta.opt("mesh"), meta.opt("batch_axis"),
-                    rhs.shape[1])
+    return sharded_columns(x, meta.opt("mesh"), meta.opt("batch_axis"),
+                           rhs.shape[1])
 
 
 # -- the pure-function contract (repro_torch.solver.functional) --------------
@@ -238,7 +206,7 @@ def _pure_build(system: BandedSystem, *, mesh=None, batch_axis=None,
     else:
         stored = _ref.build_stored(local, method=method)
     if system.mode == "batch":
-        stored = {k: _sharded(v, mesh, batch_axis, system.batch)
+        stored = {k: sharded_columns(v, mesh, batch_axis, system.batch)
                   for k, v in stored.items()}
     return stored, {
         "mesh": mesh, "batch_axis": batch_axis, "n_shards": n_shards,

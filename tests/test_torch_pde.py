@@ -204,9 +204,12 @@ def test_traffic_accounting_matches_jax(kind):
     jfn = (j_fused_cn if kind == "tridiag" else j_fused_cn_penta)
     tfn = getattr(tfused, f"{kind}_traffic_bytes")
     for n, m in ((64, 128), (512, 1 << 20)):
-        assert tfn(n, m) == jfn.hbm_traffic_bytes(n, m)
-        assert tfn(n, m, torch.float64) == \
-            jfn.hbm_traffic_bytes(n, m, jnp.float64)
+        for tdt, jdt in ((torch.float32, jnp.float32),
+                         (torch.float64, jnp.float64)):
+            got, want = tfn(n, m, tdt), jfn.hbm_traffic_bytes(n, m, jdt)
+            # JAX's keys exactly; the port's routes' keys beside them
+            assert {k: got[k] for k in want} == want
+            assert set(got) - set(want) == {"partition"}
 
 
 # ---------------------------------------------------------------------------
