@@ -1,0 +1,4 @@
+"""Kernel, training: the recurrence kernel's share of the floor of the
+forward and adjoint scans, in %."""
+
+from benchkit.readers import recur_roofline as read  # noqa: F401
