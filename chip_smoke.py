@@ -1526,20 +1526,23 @@ REPLAY_BATCH, REPLAY_SEQ, REPLAY_TOL, REPLAY_NOISE = 2, 64, 3e-2, 3.0
 
 
 def _device_kernels(prof) -> dict:
-    """Device ms by kernel name of a profiler trace."""
+    """Device ms by kernel name of a profiler trace; the device-side ranges
+    of user annotations (the program's spans) are no kernels."""
     from torch.autograd import DeviceType
     return {e.key: getattr(e, "self_device_time_total",
                            getattr(e, "self_cuda_time_total", 0.0)) / 1e3
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)}
 
 
 def _device_ops(prof) -> dict:
     """Device ms by the host op that launched it (``aten::mul``, ...) of a
-    profiler trace."""
+    profiler trace; user annotations (the program's spans) are no ops."""
     from torch.autograd import DeviceType
     out = {e.key: getattr(e, "self_device_time_total",
                           getattr(e, "self_cuda_time_total", 0.0)) / 1e3
-           for e in prof.key_averages() if e.device_type == DeviceType.CPU}
+           for e in prof.key_averages() if e.device_type == DeviceType.CPU
+           and not getattr(e, "is_user_annotation", False)}
     return {k: v for k, v in out.items() if v > 0}
 
 

@@ -56,6 +56,7 @@ import ctypes
 
 import torch
 
+from ..spans import span
 from . import build
 from . import ops as _ops
 from .engine import find_spec
@@ -80,23 +81,30 @@ def _refuse_grad(name: str, tensors) -> None:
 def tridiag_params(pf, sigma: float, dtype) -> torch.Tensor:
     """(8,) ``[sl, sc, sr, v_last, inv_sm, 0, 0, 0]``: the explicit CN
     stencil (σ, 1−2σ, σ) and the Sherman–Morrison scalars, on the factor's
-    device (no host sync)."""
+    device.  One host sync a call on a CUDA device: the stencil's
+    ``torch.tensor([...], device=...)`` is a pageable copy, which waits for
+    the stream (``host_sync`` counts 1 in the span ``fused_cn.params``)."""
     dev = pf.z.device
-    stencil = torch.tensor([sigma, 1 - 2 * sigma, sigma], dtype=dtype,
-                           device=dev)
-    sm = torch.stack([torch.as_tensor(pf.v_last), torch.as_tensor(
-        pf.inv_denom_sm)]).to(dtype=dtype, device=dev)
-    return torch.cat([stencil, sm, torch.zeros(3, dtype=dtype, device=dev)])
+    with span("fused_cn.params"):
+        stencil = torch.tensor([sigma, 1 - 2 * sigma, sigma], dtype=dtype,
+                               device=dev)
+        sm = torch.stack([torch.as_tensor(pf.v_last), torch.as_tensor(
+            pf.inv_denom_sm)]).to(dtype=dtype, device=dev)
+        return torch.cat([stencil, sm,
+                          torch.zeros(3, dtype=dtype, device=dev)])
 
 
 def penta_params(pf, sigma: float, dtype) -> torch.Tensor:
     """(16,) ``[w0..w4, a0, b0, a1, eN2, dN1, eN1, 0 …]``: the CN stencil
-    (−σ, 4σ, 1−6σ, 4σ, −σ) and the six wrap coefficients."""
+    (−σ, 4σ, 1−6σ, 4σ, −σ) and the six wrap coefficients.  One host sync a
+    call on a CUDA device, as in ``tridiag_params`` (``host_sync`` counts 1
+    in the span ``fused_cn.params``)."""
     dev = pf.Z.device
-    stencil = torch.tensor([-sigma, 4 * sigma, 1 - 6 * sigma, 4 * sigma,
-                            -sigma], dtype=dtype, device=dev)
-    return torch.cat([stencil, pf.vcoef.to(dtype),
-                      torch.zeros(5, dtype=dtype, device=dev)])
+    with span("fused_cn.params"):
+        stencil = torch.tensor([-sigma, 4 * sigma, 1 - 6 * sigma, 4 * sigma,
+                                -sigma], dtype=dtype, device=dev)
+        return torch.cat([stencil, pf.vcoef.to(dtype),
+                          torch.zeros(5, dtype=dtype, device=dev)])
 
 
 # ---------------------------------------------------------------------------
@@ -391,8 +399,9 @@ def _fused_launch(kind: str, bandwidth: int, operands: dict, c: torch.Tensor,
     [Minv,] params in the C argument order.  Returns ``(launch(stage), x,
     route)``: ``launch(stage)`` runs the ``fused_cn`` entry point of
     ``csrc/fused_cn.cu``, the whole step (stage 0) or one of the
-    partitioned route's K0–K3 (stages 1–4), and raises on a CUDA error.
-    Counts nothing."""
+    partitioned route's K0–K3 (stages 1–4), in the span
+    ``kernel.<launch_name>``, and raises on a CUDA error.  Counts
+    nothing."""
     name = f"fused_cn_{kind}"
     tensors = [*operands.values(), c]
     if any(not t.is_cuda or t.device != c.device for t in tensors):
@@ -435,11 +444,12 @@ def _fused_launch(kind: str, bandwidth: int, operands: dict, c: torch.Tensor,
         ptrs.insert(2, None)   # no Minv
     desc = (ctypes.c_int * 11)(*_ops.sweep_desc(_spec(kind)))
     fn = _ops._kernel("fused_cn")
+    where = f"kernel.{launch_name(kind, which)}"
 
     def launch(stage: int = 0) -> None:
         if m == 0:
             return
-        with torch.cuda.device(c.device):
+        with torch.cuda.device(c.device), span(where):
             stream = torch.cuda.current_stream().cuda_stream
             rc = fn(_FUSED_DTYPES[c.dtype], bandwidth, _ROUTE_CODES[which],
                     blocks, chunks, stage, *ptrs, c.data_ptr(), x.data_ptr(),

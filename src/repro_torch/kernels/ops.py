@@ -84,7 +84,10 @@ so that a check can fill it first (``repro_torch.analysis.nansweep``
 fills it with NaN to show every element written); the partitioned routes
 also take ``work=``, their workspace of ``partition_work_elems`` elements
 (``repro_torch.analysis.carryprobe`` fills it with NaN, zeros and a
-sentinel in the entry carries).
+sentinel in the entry carries).  Each call of an entry point is a span
+(``repro_torch.spans``): ``kernel.shared_sweep``, ``kernel.batch_sweep``
+and ``kernel.<spec name>`` for the recurrences (``kernel.recur1``…), the
+launch names a trace gives their kernels.
 """
 
 from __future__ import annotations
@@ -96,6 +99,7 @@ import torch
 
 from ..core.recurrence import _shift_down, _shift_up
 from ..sharding import ranked_mesh, shard_rhs, sharded_columns
+from ..spans import span
 from . import build
 from .engine import (EPS_PARAM, REGISTRY, ROUTES, RecurrenceSpec, SweepSpec,
                      compute_dtype, find_recurrence_spec, find_spec,
@@ -745,7 +749,7 @@ def _shared_launch(spec, lhs, rhs, eps, route, chunks, tile_m,
     def launch(stage: int = 0) -> None:
         if n == 0 or m == 0:
             return
-        with torch.cuda.device(rhs.device):
+        with torch.cuda.device(rhs.device), span("kernel.shared_sweep"):
             stream = torch.cuda.current_stream().cuda_stream
             rc = fn(_DTYPE_CODES[rhs.dtype], _ROUTE_CODES[picked.name],
                     picked.row_blocks, chunks, tile_m, stage, lhs.data_ptr(),
@@ -1287,7 +1291,7 @@ def batch_sweep_cuda(spec: SweepSpec, diags, rhs: torch.Tensor, *,
         (spec.n_coefs, n, m), dtype=cdt, device=rhs.device)
     fn = _kernel("batch_sweep")
     ptrs = (ctypes.c_void_p * spec.bandwidth)(*(t.data_ptr() for t in diags))
-    with torch.cuda.device(rhs.device):
+    with torch.cuda.device(rhs.device), span("kernel.batch_sweep"):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(_DTYPE_CODES[rhs.dtype], spec.bandwidth,
                 _BATCH_ROUTE_CODES[picked.name], picked.chunks, ptrs,
@@ -1530,7 +1534,7 @@ def recurrence_cuda(spec: RecurrenceSpec, gates, q: torch.Tensor, *,
         return out
     fn = _kernel("recurrence_sweep")
     ptrs = (ctypes.c_void_p * spec.order)(*(t.data_ptr() for t in gates))
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(q.device), span(f"kernel.{spec.name}"):
         stream = torch.cuda.current_stream().cuda_stream
         # spec.reverse is a field of the frozen spec, a Python bool
         rc = fn(RECURRENCE_DTYPES[q.dtype], spec.order, int(spec.reverse),  # speclint: allow-concretize

@@ -14,9 +14,10 @@ the profiler recorded of a run instead:
     terms at the card's rates.
   * ``model_flops`` and ``_attn_flops`` — the reference's "useful" FLOP
     count (``k · N_active · tokens`` plus attention), copied as they are.
-  * ``read_trace`` — device time by kernel, by launching host op and by
-    class (each hand kernel under its launch name, GEMMs, collectives,
-    other device work), launches per name, the device's busy share of the
+  * ``read_trace`` — device time by kernel, by launching host op, by the
+    program's span (``repro_torch.spans``) and by class (each hand kernel
+    under its launch name, GEMMs, collectives, other device work), idle
+    time by span, launches per name, the device's busy share of the
     traced window, the matmul FLOPs the profiler's own formula gives from
     the recorded shapes, and the collectives' bytes from the recorded
     input shapes of the ``c10d::`` ops.  The profiler records every
@@ -27,6 +28,7 @@ the profiler recorded of a run instead:
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import json
 import math
@@ -328,7 +330,63 @@ def _nesting(events: list) -> tuple:
     return nested, launched_by
 
 
-def read_trace(source) -> dict:
+class _Spans:
+    """The program's spans (``repro_torch.spans.chrome_events``) sorted by
+    start, to find the innermost one open at a time."""
+
+    def __init__(self, spans: list):
+        self.spans = sorted(spans, key=lambda e: (e["ts"], -e["dur"]))
+        self.starts = [e["ts"] for e in self.spans]
+        self.reach, top = [], -math.inf
+        for e in self.spans:
+            top = max(top, e["ts"] + e["dur"])
+            self.reach.append(top)
+
+    def at(self, t: float):
+        """The name of the latest-starting span open at ``t``, on any
+        thread (autograd's worker opens its spans inside the caller's);
+        None when none is open."""
+        for i in range(bisect.bisect_right(self.starts, t) - 1, -1, -1):
+            if self.reach[i] < t:
+                break
+            e = self.spans[i]
+            if e["ts"] + e["dur"] >= t:
+                return e["name"]
+        return None
+
+
+def _by_span(events: list, spans: list) -> dict:
+    """Device ms by the innermost span open at the midpoint of each device
+    op's launch call (by correlation id), and idle ms by the span open at
+    each gap's midpoint; None for no span.  Spans are matched by time, not
+    by thread: a profile of device activity alone labels its runtime calls
+    by another thread id than a profile with CPU activity does."""
+    found = _Spans(spans)
+    calls = {e["args"]["correlation"]: e for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "correlation" in e.get("args", {})}
+    device_ms: dict = {}
+    busy = []
+    for e in events:
+        if e.get("cat") not in _DEVICE_CATS:
+            continue
+        start, dur = float(e["ts"]), float(e.get("dur", 0))
+        busy.append((start, start + dur))
+        call = calls.get(e.get("args", {}).get("correlation"))
+        name = None if call is None else found.at(
+            call["ts"] + call.get("dur", 0) / 2)
+        device_ms[name] = device_ms.get(name, 0.0) + dur / 1e3
+    idle_ms: dict = {}
+    end = None
+    for s, e in sorted(busy):
+        if end is not None and s > end:
+            name = found.at((end + s) / 2)
+            idle_ms[name] = idle_ms.get(name, 0.0) + (s - end) / 1e3
+        end = e if end is None else max(end, e)
+    return {"device_ms_by_span": device_ms, "idle_ms_by_span": idle_ms}
+
+
+def read_trace(source, spans=None) -> dict:
     """Read a ``torch.profiler`` trace (the profiler, or its exported
     chrome-trace JSON as a dict or a path) into:
 
@@ -346,11 +404,21 @@ def read_trace(source) -> dict:
     name, a call nested in one of its own name counted once, as the
     profiler's ``key_averages`` counts it;
     ``window_ms`` and ``busy_ms``: the traced window, from the first host
-    or device event to the last, and the union of the device ops' intervals
+    op, runtime call or device op to the last (user annotations, such as
+    the program's spans, are not counted), and the union of the device
+    ops' intervals
     in it; ``busy_share``: their ratio (0 in a trace with no device op);
     ``matmul_flops``: the profiler's matmul formula over the recorded
     shapes of ``MATMUL_OPS``; ``collectives``: bytes and counts of the
-    ``c10d::`` ops by op, from their recorded input shapes."""
+    ``c10d::`` ops by op, from their recorded input shapes.
+
+    Handed the program's spans of the same run as ``spans``
+    (``repro_torch.spans.chrome_events`` on the trace's
+    ``baseTimeNanoseconds``), it adds ``device_ms_by_span``: each device
+    op's ms by the innermost span around the runtime call that launched
+    it, and ``idle_ms_by_span``: each gap between the device's busy
+    intervals by the span open on the host at the gap's midpoint (None
+    for time outside every span)."""
     events = _load(source)
     nested, launched_by = _nesting(events)
     by_kernel: dict = {}
@@ -359,7 +427,7 @@ def read_trace(source) -> dict:
     launches: dict = {}
     hand_launches: dict = {}
     host_ops: dict = {}
-    busy, spans = [], []
+    busy, extent = [], []
     flops = 0.0
     colls: dict = {}
     for e in events:
@@ -367,7 +435,7 @@ def read_trace(source) -> dict:
         start, dur = float(e["ts"]), float(e.get("dur", 0))
         if cat in _DEVICE_CATS:
             busy.append((start, start + dur))
-            spans.append((start, start + dur))
+            extent.append((start, start + dur))
             ms = dur / 1e3
             hand = launch_name(e["name"]) if cat == "kernel" else None
             sym = _symbol(e["name"]) if cat == "kernel" else e["name"]
@@ -389,7 +457,8 @@ def read_trace(source) -> dict:
             if hand:
                 hand_launches[hand] = hand_launches.get(hand, 0) + 1
         elif cat in _HOST_CATS:
-            spans.append((start, start + dur))
+            if cat != "user_annotation":
+                extent.append((start, start + dur))
             if cat != "cpu_op" or id(e) in nested:
                 continue
             name = e["name"]
@@ -401,8 +470,8 @@ def read_trace(source) -> dict:
                 c = colls.setdefault(name, {"bytes": 0.0, "count": 0})
                 c["bytes"] += _comm_bytes(e, events)
                 c["count"] += 1
-    window = (max(s[1] for s in spans) - min(s[0] for s in spans)) \
-        if spans else 0.0
+    window = (max(s[1] for s in extent) - min(s[0] for s in extent)) \
+        if extent else 0.0
     busy_us = _union_us(busy)
     return {"device_ms_by_kernel": by_kernel, "device_ms_by_op": by_op,
             "device_ms_by_class": by_class, "launches": launches,
@@ -412,7 +481,8 @@ def read_trace(source) -> dict:
             "busy_share": busy_us / window if window and busy else 0.0,
             "matmul_flops": flops,
             "collectives": {"by_op": colls, "total_bytes": sum(
-                c["bytes"] for c in colls.values())}}
+                c["bytes"] for c in colls.values())},
+            **({} if spans is None else _by_span(events, spans))}
 
 
 def top_ops(ms_by_name: dict, n: int = 5) -> list:

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.recurrence import linear_recurrence
 from repro_torch.sharding import ShardingCtx
+from repro_torch.spans import span
 from .config import ArchConfig
 from .layers import _dt, _silu, rmsnorm
 from .params import ParamSpec
@@ -66,11 +67,16 @@ def _conv_step(buf: torch.Tensor, x_t: torch.Tensor, w: torch.Tensor):
 
 
 def ssd_chunked(xh, dt, A_log, Bm, Cm, chunk: int):
-    """Chunked SSD scan.
+    """Chunked SSD scan, the span ``ssm.ssd``.
 
     xh: (B, S, H, P); dt: (B, S, H) post-softplus; Bm, Cm: (B, S, N).
     Returns (y (B, S, H, P), final_state (B, H, P, N)).
     """
+    with span("ssm.ssd"):
+        return _ssd_chunked(xh, dt, A_log, Bm, Cm, chunk)
+
+
+def _ssd_chunked(xh, dt, A_log, Bm, Cm, chunk: int):
     B, S, H, P = xh.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)

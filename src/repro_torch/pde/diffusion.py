@@ -33,6 +33,7 @@ import torch
 from ..core import periodic_thomas_factor
 from ..kernels.fused_cn import fused_cn_step
 from ..solver import BandedSystem, factorize, solve
+from ..spans import span
 from .stencil import cn_rhs_diffusion
 
 
@@ -64,19 +65,22 @@ class DiffusionCN:
 
     def step_fn(self):
         """Returns (factor, step) where step(field (N, M)) -> next field;
-        the factor is built ONCE here and every step reuses it."""
+        the factor is built ONCE here and every step reuses it.  Each step
+        is the span ``pde.step``."""
         s = self.sigma
         if self.backend == "fused":
             pf = self.factor()
 
             def step(field):
-                return fused_cn_step(pf, s, field)
+                with span("pde.step"):
+                    return fused_cn_step(pf, s, field)
             return pf, step
 
         fact = factorize(self.system(), backend=self.backend)
 
         def step(field):
-            return solve(fact, cn_rhs_diffusion(field, s))
+            with span("pde.step"):
+                return solve(fact, cn_rhs_diffusion(field, s))
         return fact, step
 
     def run(self, field0: torch.Tensor, n_steps: int) -> torch.Tensor:

@@ -20,6 +20,7 @@ from repro_torch.models.model import decode_fn, prefill_fn
 from repro_torch.models.params import (tree_leaves, tree_map, tree_unflatten,
                                       tree_zip_map)
 from repro_torch.sharding import ShardingCtx
+from repro_torch.spans import span
 from .optimizer import AdamW, apply_updates
 
 
@@ -56,19 +57,28 @@ def make_train_step(model, sctx: ShardingCtx, opt: AdamW, *, accum: int = 1):
     ``model`` is a ``repro_torch.models.Model`` (only its ``loss`` is
     used: the parameters are the tree passed in).  ``batch`` holds
     (B, S) ``tokens`` and ``labels``; ``accum`` splits B into that many
-    microbatches."""
+    microbatches.  A step is the span ``train.step``, around
+    ``train.forward`` (the loss) and ``train.backward`` (its gradients), a
+    pair a microbatch, and ``train.optimizer`` (AdamW's update and its
+    application)."""
 
     def grads_of(params, batch):
         leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
         with torch.enable_grad():
-            loss, metrics = model.loss(tree_unflatten(params, leaves), batch,
-                                       sctx)
-            grads = torch.autograd.grad(loss, leaves)
+            with span("train.forward"):
+                loss, metrics = model.loss(tree_unflatten(params, leaves),
+                                           batch, sctx)
+            with span("train.backward"):
+                grads = torch.autograd.grad(loss, leaves)
         metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
                    for k, v in metrics.items()}
         return loss.detach(), metrics, tree_unflatten(params, grads)
 
     def train_step(params, opt_state, batch, step):
+        with span("train.step"):
+            return _train_step(params, opt_state, batch, step)
+
+    def _train_step(params, opt_state, batch, step):
         if accum > 1:
             mbs = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])
                    for k, v in batch.items()}
@@ -86,7 +96,7 @@ def make_train_step(model, sctx: ShardingCtx, opt: AdamW, *, accum: int = 1):
             metrics = {}
         else:
             loss, metrics, grads = grads_of(params, batch)
-        with torch.no_grad():
+        with torch.no_grad(), span("train.optimizer"):
             deltas, opt_state, opt_metrics = opt.update(grads, opt_state,
                                                         params, step)
             params = apply_updates(params, deltas)
@@ -96,8 +106,10 @@ def make_train_step(model, sctx: ShardingCtx, opt: AdamW, *, accum: int = 1):
 
 
 def make_prefill_step(model, sctx: ShardingCtx):
+    """(params, batch) -> (last-token logits, cache), the span
+    ``prefill.step``."""
     def prefill_step(params, batch):
-        with torch.inference_mode():
+        with torch.inference_mode(), span("prefill.step"):
             return prefill_fn(params, batch, sctx, model.cfg)
     return prefill_step
 

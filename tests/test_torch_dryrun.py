@@ -192,7 +192,12 @@ def test_trace_reader_on_a_cpu_profile_of_the_smoke_prefill(tmp_path):
                  with_flops=True) as prof:
         model.prefill({"tokens": tokens})
     got = read_trace(prof)
-    assert got["host_ops"] == {e.key: e.count for e in prof.key_averages()}
+    # the program's spans are user annotations, which are no host ops
+    assert got["host_ops"] == {
+        e.key: e.count for e in prof.key_averages()
+        if not getattr(e, "is_user_annotation", False)}
+    assert "ssm.ssd" not in got["host_ops"]
+    assert "ssm.ssd" in {e.key for e in prof.key_averages()}
     assert got["matmul_flops"] == sum(e.flops for e in prof.events()
                                       if e.name in MATMUL_OPS) > 0
     assert got["host_ops"]["aten::bmm"] >= cfg.n_layers

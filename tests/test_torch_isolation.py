@@ -41,11 +41,12 @@ print(len(names), ",".join(subpackages), ",".join(leaked))
 # (``launch.{analytic_cost,trace_analysis,dryrun,roofline_report}``) and
 # the checks (``analysis``: its package, ``__main__``, ``speccheck``,
 # ``nansweep``, and since the last module slice ``capture``,
-# ``gridcheck``, ``lint``, ``mutation``, ``tracecheck``)
+# ``gridcheck``, ``lint``, ``mutation``, ``tracecheck``), and the spans
+# the layers record (``spans``)
 SUBPACKAGES = ["analysis", "ckpt", "configs", "convert", "core", "data",
                "kernels", "launch", "models", "pde", "runtime", "sharding",
-               "solver", "train"]
-MODULES = 78
+               "solver", "spans", "train"]
+MODULES = 79
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
